@@ -1,6 +1,6 @@
 # Build/test entry points (reference Makefile:83-116 equivalents).
 
-.PHONY: all native test tpu-test bench clean
+.PHONY: all native test chip-smoke bench clean
 
 all: native
 
@@ -10,10 +10,10 @@ native:
 test: native
 	python -m pytest tests/ -q
 
-# On-chip parity gate (XLA-vs-Pallas bits, frozen digests, dither
-# vector); writes TPU_SMOKE.json.  Never run two TPU processes at once.
-tpu-test: native
-	python tpu_smoke.py
+# On-card proof of the main path (numerics, frozen wire digests, the
+# 512^3 snapshot, the delta codecs); needs a GPU.  One process per card.
+chip-smoke: native
+	python chip_smoke.py
 
 bench: native
 	python bench.py

@@ -1,29 +1,31 @@
 #!/usr/bin/env python
-"""Kernel microbench suite: the reference's compress_util_bench.c
-workloads, one for one, on the TPU.
+"""Per-operation device times of the codec's XLA paths, each beside a
+plain device-to-device copy of the same bytes.
 
-Reference workloads (all 100 MB of f32/u32 input, single host thread):
-  minMaxBench            test/compress_util_bench.c:13-29   (enabled)
-  periodic/undoPeriodic  compress_util_bench.c:31-76        (disabled block)
-  binIndex/undoBinIndex  compress_util_bench.c:78-150       (disabled block)
-  pack/unpack 8-bit aligned + 9-bit straddling
-                         compress_util_bench.c:152-232      (disabled block)
-  (mock) fast compress / undo fast compress (level 11)
-                         compress_util_bench.c:234-298      (enabled)
+    python bench_kernels.py [--grid 512] [--seed 0]
 
-Same adaptive harness policy as the reference (0.5 s trials, 30 s cap,
-bench.h:6-7) plus this runtime's anti-elision measures (salted dependency
-chains + D2H readback; see bench/harness.py).  Throughput is GB/s of the
-100 MB input per workload, per chip.
+Operations run at the shapes of the snapshot ``chip_smoke.py`` writes
+(a displaced 512^3 lattice in 16 blocks of 2^23 particles): positions
+(17-bit bins), velocities (12-bit) and ID grid coordinates, through the
+same functions the snapshot writer and reader call, plus the delta-family
+pieces on one 2^23-element plane.  For each operation the line gives the
+time per call (median of 5 timed windows of 3 calls, after a warm-up
+call that compiles), the bytes it must move (inputs + outputs), the rate
+that implies and its share of the copy's rate.  Host-side work inside an
+operation (the chunked codecs' table handling) is part of its time.
 
-Writes bench_kernels.json and prints one JSON object.
+Writes ``bench_kernels.json`` beside this script (the ``meta`` and
+``results`` sections; other sections are kept) and refuses to run
+without a GPU.
 """
 
+import argparse
 import json
 import os
+import statistics
 import sys
+import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/minnow_jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax  # noqa: E402
@@ -31,321 +33,193 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from minnow_c_tpu.bench import harness  # noqa: E402
-from minnow_c_tpu.ops import bitpack, fastpath, kernels, native  # noqa: E402
-from minnow_c_tpu.ops import rng as _rng  # noqa: E402
-
-W = 64.0
-N = 25_165_824  # ~100 MB f32, 512K-tile aligned
-LEVEL = 11      # compress_util_bench.c:247
-CHAIN = 32      # in-jit chained iterations (amortize remote dispatch)
 
 results = {}
 
 
-def dump_results():
-    """Write bench_kernels.json (values are GB/s of the 100 MB input,
-    per chip) with the measurement config alongside the numbers.
-
-    Merge-safe: replaces only the "meta" and "results" sections,
-    preserving foreign sections (e.g. bench_codecs.py's "codecs") —
-    round 4's wholesale dump destroyed them (VERDICT r4 weak #1)."""
-    import time
-    out = {
-        "meta": {
-            "unit": "GB/s of 100MB f32/u32 input, per chip",
-            "device": jax.devices()[0].device_kind,
-            "backend": jax.default_backend(),
-            "n_elems": N,
-            "level": LEVEL,
-            "chain": CHAIN,
-            "semantics": "salted in-jit chains; XLA-kernel rows measure "
-                         "the kernel fused into a consumer with a "
-                         "VMEM-resident working set (the 100MB input "
-                         "fits v5e's 128MB VMEM, so chained re-reads "
-                         "legitimately exceed the ~819 GB/s HBM rate); "
-                         "the Pallas rows (fused_decode_pallas, "
-                         "fast_compress) stream fresh 100MB outputs "
-                         "through HBM every iteration and are the "
-                         "load-bearing per-chip numbers",
-            "timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
-        },
-        "results": results,
-    }
+def dump_results(meta=None):
+    """Write ``bench_kernels.json`` (merge-safe: only ``meta`` and
+    ``results`` are replaced)."""
+    from minnow_c_tpu.bench import records
+    out = {"meta": dict(meta or {}, **harness.device_record(),
+                        timestamp=time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                                time.gmtime())),
+           "results": results}
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "bench_kernels.json")
-    from minnow_c_tpu.bench import records
     records.update_sections(path, out)
     print(json.dumps(out))
 
 
-def bench(name, make_chain, bytes_per_iter=N * 4):
-    fn = make_chain()
-    res = harness.run(fn, bytes_per_iter=bytes_per_iter * CHAIN)
-    results[name] = round(res.gb_per_second, 2)
-    print(f"{name:24s} {res.gb_per_second:8.2f} GB/s", flush=True)
+def time_call(fn, *args, windows: int = 5, calls: int = 3) -> float:
+    """Seconds per call: median over ``windows`` of ``calls`` back-to-back
+    calls, each window ending in block_until_ready."""
+    jax.block_until_ready(fn(*args))
+    ts = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out = fn(*args)
+        jax.block_until_ready(out)
+        ts.append((time.perf_counter() - t0) / calls)
+    return statistics.median(ts)
 
 
-def chained(body, out_template):
-    """Wrap a salt-dependent body into a CHAIN-long in-jit chain.
+def nbytes(*arrays) -> int:
+    return sum(int(np.prod(a.shape)) * a.dtype.itemsize
+               for a in jax.tree.leaves(arrays))
 
-    Python-unrolled, NOT a fori_loop: the loop carry forces a
-    per-iteration copy of the carried array and the while-loop adds
-    per-step overhead (exp/decode_chain_variants.py measured 134 vs 291
-    GB/s for identical decode work).  ``out_template`` is unused (kept
-    for call-site compatibility with the fori_loop version)."""
-    del out_template
 
-    @jax.jit
-    def fn(salt):
-        s = salt
-        out = None
-        for i in range(CHAIN):
-            out, s2 = body(s)
-            s = s2 ^ jnp.uint32(i)
+def pack_rows_sum(x, width: int):
+    """Candidate for ``bitpack.uniform_pack_rows``: the same fold with a
+    masked sum over the 32-element axis in place of the u32 matrix
+    product (disjoint bits, so the sum is an OR)."""
+    rows, n = x.shape
+    vals = x.reshape(rows * (n // 32), 32) & jnp.uint32((1 << width) - 1)
+    k = np.arange(32)
+    lsh = ((k * width) % 32).astype(np.uint32)
+    tgt = (k * width) // 32
+    straddle = (lsh + width) > 32
+    lo = vals << jnp.asarray(lsh)[None, :]
+    rsh = np.where(straddle, 32 - lsh, 0).astype(np.uint32)
+    hi = jnp.where(jnp.asarray(straddle)[None, :],
+                   vals >> jnp.asarray(rsh)[None, :], jnp.uint32(0))
+    j = np.arange(width)
+    sel_lo = jnp.asarray(tgt[:, None] == j[None, :])
+    sel_hi = jnp.asarray((tgt[:, None] + 1 == j[None, :]) & straddle[:, None])
+    zero = jnp.uint32(0)
+    words = (jnp.sum(jnp.where(sel_lo[None], lo[:, :, None], zero), axis=1,
+                     dtype=jnp.uint32) +
+             jnp.sum(jnp.where(sel_hi[None], hi[:, :, None], zero), axis=1,
+                     dtype=jnp.uint32))
+    return words.reshape(rows, (n // 32) * width)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--grid", type=int, default=512)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    harness.require_gpu()
+    from minnow_c_tpu.utils import compile_cache
+    compile_cache.enable()
+
+    import chip_smoke
+    from minnow_c_tpu.algos import chunked
+    from minnow_c_tpu.algos.algo_coil_v1_1 import CoilV1_1
+    from minnow_c_tpu.ops import bitpack, kernels
+    from minnow_c_tpu.ops import rng as _rng
+    from minnow_c_tpu.parallel import snapshot
+    from minnow_c_tpu.quant import engine
+
+    tag = harness.card_tag()
+    B = 16
+    box = chip_smoke.BOX
+    pos, vel, ids = chip_smoke.make_snapshot(args.grid, args.seed)
+    n = ids.shape[0]
+    nb = n // B
+    xb = jax.device_put(np.ascontiguousarray(
+        np.moveaxis(pos.reshape(3, B, nb), 1, 0)))
+    vb = jax.device_put(np.ascontiguousarray(
+        np.moveaxis(vel.reshape(3, B, nb), 1, 0)))
+
+    def report(name, seconds, moved):
+        copy_rate = results.get("copy", {}).get("GBps")
+        rate = moved / seconds / 1e9
+        results[name] = {"ms": seconds * 1e3, "bytes": moved, "GBps": rate,
+                         "share_of_copy": (rate / copy_rate
+                                           if copy_rate else 1.0)}
+        print(f"{name:28s} {seconds * 1e3:10.3f} ms {moved / 1e9:8.3f} GB "
+              f"{rate:9.1f} GB/s  {results[name]['share_of_copy']:6.3f} "
+              f"of copy | {tag}", flush=True)
+
+    def op(name, fn, *a):
+        out = fn(*a)
+        report(name, time_call(fn, *a), nbytes(a) + nbytes(out))
         return out
-    return fn
 
+    words_in = jax.device_put(jnp.arange(B * 3 * nb, dtype=jnp.uint32)
+                              .reshape(B * 3, nb))
+    op("copy", jax.jit(lambda x: x ^ jnp.uint32(1)), words_in)
+    del words_in
 
-def salted_f32(arr, s):
-    """Flip the mantissa LSB of every element by the salt's low bit.
+    # positions: stats -> bin -> pack (the writer), unpack -> undo (reader)
+    x0, rng_b = op("pos.stats", lambda x: snapshot._batched_stats_pos(
+        x, box), xb)
+    pdepth = engine.delta_to_depth(chip_smoke.POS_DELTA, 0.0,
+                                   float(np.asarray(jnp.max(rng_b))))
+    words = op("pos.bin+pack", lambda x, a, r: snapshot._batched_bin_pack_pos(
+        x, a, r, pdepth, box), xb, x0, rng_b)
+    bins = op("pos.bin", jax.jit(lambda x, a, r: jax.vmap(
+        lambda xb_, ab, rb: jax.vmap(lambda xd, o: kernels.uniform_bin_index(
+            kernels.undo_periodic(xd, box), pdepth, o, rb))(xb_, ab))(
+        x, a, r)), xb, x0, rng_b)
+    bins_rows = bins.reshape(B * 3, nb)
+    packed = op(f"pack_rows.{pdepth}", lambda b: bitpack.uniform_pack_rows(
+        b, pdepth), bins_rows)
+    alt = op(f"pack_rows_sum.{pdepth}", jax.jit(
+        lambda b: pack_rows_sum(b, pdepth)), bins_rows)
+    results[f"pack_rows_sum.{pdepth}"]["equal"] = bool(
+        jnp.array_equal(packed, alt))
+    del packed, alt
+    del bins, bins_rows
+    key = jnp.asarray(_rng.field_key(args.seed, 0, 0), jnp.uint32)
+    op("pos.decode(1 dim)", lambda w, a, r: snapshot._batched_float_decode(
+        w, a, r, key, pdepth, nb, True, jnp.float32(box)),
+        words[:, :1], x0[:, :1], rng_b)
+    w2 = words[:, 0]
+    op(f"unpack.{pdepth}", jax.jit(jax.vmap(
+        lambda r: bitpack.uniform_unpack(r, pdepth, nb))), w2)
+    op(f"unpack_gather.{pdepth}", jax.jit(jax.vmap(
+        lambda r: bitpack.uniform_unpack_gather(r, pdepth, nb))), w2)
+    del words, w2
 
-    The additive ``x + f32_salt(s)`` injection is ALGEBRAICALLY
-    FACTORABLE: XLA rewrites ``min(x + c)`` to ``min(x) + c`` and hoists
-    the loop-invariant ``min(x)`` out of the unrolled chain, producing
-    impossible numbers (minmax "measured" 1308 GB/s on an ~819 GB/s HBM
-    chip).  An xor on the raw bits is not factorable, fuses into the
-    consumer, and perturbs values by <= 1 ulp."""
-    return jax.lax.bitcast_convert_type(
-        jax.lax.bitcast_convert_type(arr, jnp.uint32) ^
-        (s & jnp.uint32(1)), jnp.float32)
+    # velocities
+    vx0, vrng = op("vel.stats", lambda v: snapshot._batched_stats_vel(v),
+                   vb)
+    vdepth = engine.delta_to_depth(chip_smoke.VEL_DELTA, 0.0,
+                                   float(np.asarray(jnp.max(vrng))))
+    vwords = op("vel.bin+pack", lambda v, a, r: snapshot._batched_bin_pack_vel(
+        v, a, r, vdepth), vb, vx0, vrng)
+    op("vel.decode(1 dim)", lambda w, a, r: snapshot._batched_float_decode(
+        w, a, r, key, vdepth, nb, False, jnp.float32(0.0)),
+        vwords[:, :1], vx0[:, :1], vrng.astype(jnp.float32))
+    del vwords, xb, vb
 
+    # IDs: device decompose, then the per-dim rows pack
+    ids_d = jax.device_put(ids)
+    qdims = op("ids.decompose", lambda i: engine.id_decompose(
+        i, args.grid)[0], ids_d)
+    rel = qdims.astype(jnp.uint32).reshape(3, B, nb)[0]
+    iw = max(1, int(np.asarray(jnp.max(rel))).bit_length())
+    op(f"ids.pack_rows.{iw}", lambda r: snapshot._batched_id_pack(r, iw),
+       rel)
+    del ids_d, qdims, rel
 
-def main():
-    rng = np.random.default_rng(0)
-    x = jax.device_put(jnp.asarray(
-        rng.uniform(0, W, N).astype(np.float32)))
-    bins_np = rng.integers(0, 1 << LEVEL, N, dtype=np.uint64).astype(
-        np.uint32)
-    bins = jax.device_put(jnp.asarray(bins_np))
-    key = _rng.field_key_arr(7, 0, 0)
-    packed8 = jax.device_put(jnp.asarray(
-        native.uniform_pack_host(bins_np & 0xFF, 8)))
-    packed9 = jax.device_put(jnp.asarray(
-        native.uniform_pack_host(bins_np & 0x1FF, 9)))
-    packed11 = jax.device_put(jnp.asarray(
-        native.uniform_pack_host(bins_np, LEVEL)))
+    # delta family on one plane of 2^23 positions (Coil v1.1 layout)
+    plane = jnp.asarray(pos[0, :nb])
+    lo, hi = jnp.min(plane), jnp.max(plane)
+    pbins = kernels.uniform_bin_index(plane, pdepth, lo, hi - lo)
+    coil = CoilV1_1()
+    payload, _ = coil._encode_plane(pbins, pdepth)
+    t_enc = time_call(lambda b: coil._encode_plane(b, pdepth)[0], pbins,
+                      windows=3, calls=1)
+    report("coil.encode_plane", t_enc, nb * 4 + payload.nbytes)
+    t_dec = time_call(lambda w: coil._decode_plane(w, 0, nb), payload,
+                      windows=3, calls=1)
+    report("coil.decode_plane", t_dec, payload.nbytes + nb * 4)
+    z = kernels.u32_delta_zigzag(pbins)
+    op("cumsum_u32", jax.jit(lambda v: jnp.cumsum(v).astype(jnp.uint32)), z)
+    zc, widths = chunked.chunk_widths_device(z, 16384)
+    body = np.frombuffer(chunked.pack_chunks_device(zc, widths), np.uint32)
+    t_unp = time_call(lambda b: chunked.unpack_chunks_device(
+        b, widths, 16384), body, windows=3, calls=1)
+    report(f"chunked.unpack({len(np.unique(widths))} widths)", t_unp,
+           body.nbytes + nb * 4)
 
-    # Salt derivation is a FULL REDUCTION of the output, never a single
-    # element: a slice-rooted XLA fusion computes only the sliced element
-    # of an elementwise producer chain, so element-[0] salts let every
-    # intermediate iteration of an unrolled chain be dead-code-eliminated
-    # to one lane (periodic "measured" 1065 GB/s that way).  A reduce
-    # consumes every element.  Pallas-kernel cases are immune (the custom
-    # call is opaque) but use the same spelling for uniformity.  NOTE the
-    # semantics this buys: for pure-XLA kernels the intermediate outputs
-    # are consumed by the fused reduce and never stored to HBM, so these
-    # rows measure the kernel's fused-into-a-consumer cost -- which is
-    # exactly how the real pipelines use them.
-    u32_red = lambda a: jnp.max(a).astype(jnp.uint32)  # noqa: E731
-    f32_red = lambda a: jax.lax.bitcast_convert_type(  # noqa: E731
-        jnp.max(a), jnp.uint32)
-
-    # minMaxBench (compress_util_bench.c:13-29)
-    def mk_minmax():
-        def body(s):
-            lo, hi = kernels.minmax(salted_f32(x, s))
-            out = jnp.stack([lo, hi])
-            return out, f32_red(out)
-        return chained(body, jnp.zeros((2,), jnp.float32))
-    bench("minmax", mk_minmax)
-
-    # periodic / undoPeriodic (compress_util_bench.c:31-76)
-    def mk_periodic():
-        def body(s):
-            out = kernels.periodic(salted_f32(x, s), W)
-            return out, f32_red(out)
-        return chained(body, jnp.zeros((N,), jnp.float32))
-    bench("periodic", mk_periodic)
-
-    def mk_undo_periodic():
-        def body(s):
-            out = kernels.undo_periodic(salted_f32(x, s), W)
-            return out, f32_red(out)
-        return chained(body, jnp.zeros((N,), jnp.float32))
-    bench("undo_periodic", mk_undo_periodic)
-
-    # binIndex / undoBinIndex (compress_util_bench.c:78-150)
-    def mk_bin_index():
-        def body(s):
-            out = kernels.uniform_bin_index(salted_f32(x, s), LEVEL,
-                                            0.0, W)
-            return out, u32_red(out)
-        return chained(body, jnp.zeros((N,), jnp.uint32))
-    bench("bin_index", mk_bin_index)
-
-    def mk_undo_bin_index():
-        def body(s):
-            out = kernels.undo_uniform_bin_index(
-                bins ^ (s & jnp.uint32(0x3FF)), LEVEL, 0.0, W, key ^ s)
-            return out, f32_red(out)
-        return chained(body, jnp.zeros((N,), jnp.float32))
-    bench("undo_bin_index", mk_undo_bin_index)
-
-    # pack/unpack: 8-bit aligned + 9-bit word-straddling
-    # (compress_util_bench.c:152-232)
-    for width, packed in ((8, packed8), (9, packed9)):
-        def mk_pack(width=width):
-            def body(s):
-                out = bitpack.uniform_pack(
-                    (bins ^ (s & jnp.uint32(0xFF))) &
-                    jnp.uint32((1 << width) - 1), width)
-                return out, u32_red(out)
-            return chained(body, jnp.zeros(
-                (bitpack.packed_words(N, width),), jnp.uint32))
-        bench(f"pack_{width}bit", mk_pack)
-
-        def mk_unpack(width=width, packed=packed):
-            def body(s):
-                out = bitpack.uniform_unpack(packed ^ s, width, N)
-                return out, u32_red(out)
-            return chained(body, jnp.zeros((N,), jnp.uint32))
-        bench(f"unpack_{width}bit", mk_unpack)
-
-    # (mock) fast compress / undo (compress_util_bench.c:234-298)
-    def mk_fast_compress():
-        def body(s):
-            w, x0, dx = fastpath.fast_uniform_encode(
-                salted_f32(x, s), LEVEL, periodic_width=W)
-            return w, u32_red(w)
-        return chained(body, jnp.zeros(
-            (bitpack.packed_words(N, LEVEL),), jnp.uint32))
-    bench("fast_compress", mk_fast_compress)
-
-    def mk_undo_fast_compress():
-        def body(s):
-            out = fastpath.fast_uniform_decode(
-                packed11 ^ s, key ^ s, LEVEL, N, 0.0, W, periodic_width=W)
-            return out, f32_red(out)
-        return chained(body, jnp.zeros((N,), jnp.float32))
-    bench("undo_fast_compress", mk_undo_fast_compress)
-
-    # The production fused decode (the headline path; bench.py) --
-    # Pallas, so TPU only.
-    if jax.default_backend() != "tpu":
-        dump_results()
-        return
-
-    from minnow_c_tpu.ops import decode_pallas
-
-    def mk_fused_decode():
-        def body(s):
-            out = decode_pallas.decode_pallas(
-                packed11, key ^ s, LEVEL, N, 0.0, W, W, periodic=True)
-            # the pallas call is opaque: element-[0] slicing cannot
-            # elide it, but use the reduction for uniformity
-            return out, f32_red(out)
-        return chained(body, jnp.zeros((N,), jnp.float32))
-    bench("fused_decode_pallas", mk_fused_decode)
-
-    # ---- batched rows kernels (the sharded/batched writer hot paths;
-    # 64 blocks x 3 dims x 131072 = ~100 MB, rows contract) ------------
-    from minnow_c_tpu.parallel.sharding import (_rows_encode_recip_raw,
-                                                _rows_stats_raw)
-    RB, RND = 64, 1 << 17
-    ROWS_N = RB * 3 * RND
-    xrows = jax.device_put(jnp.asarray(
-        rng.uniform(0, W, (RB * 3, RND)).astype(np.float32)))
-    rkeys = jax.device_put(jnp.asarray(
-        rng.integers(0, 1 << 32, (RB * 3, 2), dtype=np.int64)
-        .astype(np.uint32)))
-
-    # NB: these rows benches pass the 100 MB arrays as jit ARGUMENTS --
-    # closed-over arrays serialize as constants into the remote compile
-    # and, by the 14th such executable in one process, measured 0.01
-    # GB/s for a pipeline that runs 75 GB/s with argument-passing.
-    def mk_rows_recip_encode():
-        # the production path: pallas stats + pallas encode (a fused
-        # one-pass variant, encode_pallas.encode_recip_fused_blocks,
-        # measured SLOWER at both 100 MB and 400 MB scales --
-        # exp/rows_encode_hbm.py + the fused row below)
-        @jax.jit
-        def g(salt, x):
-            s = salt
-            w = None
-            for i in range(CHAIN):
-                xs = salted_f32(x, s)
-                mn, mx = _rows_stats_raw(xs, W, True, False)
-                rng_r = jnp.repeat(jnp.max(
-                    (mx - mn).reshape(RB, 3), axis=1), 3)
-                w = _rows_encode_recip_raw(xs, mn, rng_r, 14, W, True,
-                                           False)
-                s = u32_red(w[0]) ^ jnp.uint32(i)
-            return s, w
-        return lambda s: g(s, xrows)
-    bench("rows_recip_encode", mk_rows_recip_encode,
-          bytes_per_iter=ROWS_N * 4)
-
-    def mk_rows_recip_encode_fused_1pass():
-        # the negative result, kept measured: one kernel doing stats +
-        # block range + in-kernel exact recip + bin + pack
-        from minnow_c_tpu.ops import encode_pallas as _ep
-
-        @jax.jit
-        def g(salt, x):
-            s = salt
-            w = None
-            for i in range(CHAIN):
-                xs = salted_f32(x, s)
-                xb = xs.reshape(RB, 3, RND)
-                w, mn, mx = _ep.encode_recip_fused_blocks(
-                    xb, jnp.float32(W), xb[:, :, 0], 14, True)
-                s = u32_red(w[0]) ^ jnp.uint32(i)
-            return s, w
-        return lambda s: g(s, xrows)
-    bench("rows_recip_encode_fused_1pass", mk_rows_recip_encode_fused_1pass,
-          bytes_per_iter=ROWS_N * 4)
-
-    wrows = jax.device_put(jnp.asarray(
-        rng.integers(0, 1 << 32, (RB * 3, RND * 16 // 32),
-                     dtype=np.int64).astype(np.uint32)))
-    rx0 = jnp.zeros((RB * 3,), jnp.float32)
-    rdx = jnp.full((RB * 3,), W, jnp.float32)
-
-    def mk_rows_fused_decode():
-        @jax.jit
-        def g(salt, wr):
-            s = salt
-            out = None
-            for i in range(CHAIN):
-                i0 = jax.lax.broadcasted_iota(jnp.uint32, wr.shape, 0)
-                i1 = jax.lax.broadcasted_iota(jnp.uint32, wr.shape, 1)
-                w = jnp.where((i0 == 0) & (i1 == 0), wr ^ s, wr)
-                out = decode_pallas.decode_pallas_rows(
-                    w, rkeys, 16, RND, rx0, rdx, box=W, periodic=True)
-                s = f32_red(out) ^ jnp.uint32(i)
-            return s, out
-        return lambda s: g(s, wrows)
-    bench("rows_fused_decode", mk_rows_fused_decode,
-          bytes_per_iter=ROWS_N * 4)
-
-    # ---- streaming u32 prefix sum (the delta-family decode backbone) --
-    from minnow_c_tpu.ops import scan_pallas
-
-    def mk_cumsum():
-        @jax.jit
-        def g(salt, b):
-            s = salt
-            out = None
-            for i in range(CHAIN):
-                io = jax.lax.broadcasted_iota(jnp.uint32, b.shape, 0)
-                v = jnp.where(io == 0, b ^ s, b)
-                out = scan_pallas.cumsum_u32(v)
-                s = u32_red(out) ^ jnp.uint32(i)
-            return s, out
-        return lambda s: g(s, bins)
-    bench("cumsum_u32_pallas", mk_cumsum)
-
-    dump_results()
+    dump_results({"grid": args.grid, "blocks": B, "pos_depth": pdepth,
+                  "vel_depth": vdepth, "id_width": iw})
 
 
 if __name__ == "__main__":

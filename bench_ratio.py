@@ -19,12 +19,7 @@ import os
 import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/minnow_jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -171,6 +166,8 @@ def our_size(kind: str, data, delta: float, codec: str) -> int:
 
 
 def main():
+    from minnow_c_tpu.utils import compile_cache
+    compile_cache.enable()
     data = datasets()
     rows = []
     for (kind, order), arr in data.items():

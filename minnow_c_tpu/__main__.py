@@ -71,9 +71,9 @@ def main(argv=None):
     c.add_argument("--scale-mode", choices=("div", "recip"),
                    default="div", dest="scale_mode",
                    help="float bin map: 'div' = C-exact division "
-                        "(default), 'recip' = reciprocal multiply (the "
-                        "single-kernel TPU encode; wire-compatible, see "
-                        "doc/wire_format.md section 6)")
+                        "(default), 'recip' = reciprocal multiply "
+                        "(wire-compatible, see doc/wire_format.md "
+                        "section 6)")
 
     d = sub.add_parser("decompress",
                        help=".g2.min -> Gadget-2 / .il.min -> HDF5")
@@ -113,6 +113,8 @@ def main(argv=None):
                    help="box length for wrap-aware intersection")
 
     args = p.parse_args(argv)
+    from .utils import compile_cache
+    compile_cache.enable()
 
     if args.cmd == "compress":
         import os

@@ -6,8 +6,8 @@ tab. 3; unimplemented in the reference).  Like Diff, planes store
 zigzag-mapped predecessor deltas -- but the pack width is chosen *per
 256-element chunk* instead of per plane, so a single large jump (a particle
 far from its predecessor) only widens its own chunk.  This is the
-classical patched/chunked frame-of-reference layout, arranged
-TPU-natively: all chunks of one plane are packed in a single vectorized
+classical patched/chunked frame-of-reference layout, arranged for a
+vector machine: all chunks of one plane are packed in a single vectorized
 pass over a (n_chunks, 256) matrix, using one uniform pass per *distinct*
 chunk width (spatially coherent data typically has only a handful).
 
@@ -79,11 +79,9 @@ class CoilV1_0(TrimV1_0):
 
         z = chunked.unpack_chunks_auto(body, widths).reshape(-1)[:n]
         # logical-shift unzigzag; the int32 form corrupts |delta| >= 2^30
-        from ..ops.scan_pallas import cumsum_u32_auto
         d = kernels.u32_unzigzag(jnp.asarray(z))
         d = d.at[0].set(0)
-        out = jnp.uint32(first) + cumsum_u32_auto(d)  # streaming Pallas
-        # scan on TPU; bit-identical (u32 wrap, associative)
+        out = jnp.uint32(first) + jnp.cumsum(d, dtype=jnp.uint32)
         # device-resident: bins stay on device through dequantization
         return out
 

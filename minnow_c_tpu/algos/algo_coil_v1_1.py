@@ -1,23 +1,20 @@
-"""Coil v1.1 -- chunked-width delta codec, kernel-native layout, frozen.
+"""Coil v1.1 -- chunked-width delta codec, kernel-friendly layout,
+frozen.
 
 Wire evolution over Coil v1.0 (a minor bump per the spec's versioning
-rules, header_format.tex:266-276), motivated by measurement: on TPU
-every dynamic-offset XLA data movement caps at ~0.3-25 GB/s
-(exp/coil_sort_gather*.py), which left the v1.0 bucketed-gather decode
-at 1.5 GB/s -- below the 5 GB/s/chip BASELINE bar -- despite Coil being
-the repo's best-ratio codec.  Two wire changes make a zero-gather fused
-decode possible (ops/chunked_pallas.py, 66 GB/s at 25M on v5e):
+rules, header_format.tex:266-276).  Two wire changes let a single-pass
+decoder read each chunk as one static tile instead of gathering chunk
+bodies at dynamic offsets:
 
 * **Parametric chunk size** (``chunk_log2`` header byte): the encoder
   keeps 256-element chunks below 2^20 values (v1.0-class ratio on small
   planes) and switches to 16384-element chunks at scale, where width
-  variation across 256-element windows is noise but per-grid-step
-  latency is not.
+  variation across 256-element windows is noise but per-chunk overhead
+  is not.
 * **Column-major chunk bodies** (word-of-lane-major,
-  ``ops/chunked_pallas.body_to_cmajor``): a chunk's funnel-unpack word
-  matrix is then a static (4*width, 128) slice of 2D VMEM scratch --
-  Mosaic rejects 1D->2D vector shape casts, so the natural bitstream
-  order cannot feed the kernel directly.
+  ``algos/chunked.body_to_cmajor``): a chunk's funnel-unpack word matrix
+  is a contiguous (4*width, chunk/128) tile, so 128 lanes each read
+  their own words as static rows.
 
 Plane payload layout::
 
@@ -40,14 +37,14 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import semver
-from ..ops import chunked_pallas, kernels
+from ..ops import kernels
 from ..types import AlgoCode
 from . import chunked, registry
 from .algo_trim_v1_0 import TrimV1_0
 
 VERSION = semver.pack(1, 1, 0)
 
-KERNEL_CHUNK = 16384     # the fused decode kernel's (only) chunk size
+KERNEL_CHUNK = 16384     # chunk size for planes of BIG_PLANE or more
 SMALL_CHUNK = 256        # v1.0-class chunks for small planes
 BIG_PLANE = 1 << 20      # threshold for switching to kernel chunks
 
@@ -64,7 +61,7 @@ def _cmajor_blob(natural: bytes, widths: np.ndarray, chunk: int) -> bytes:
         if not w:
             continue
         s = slice(int(offs[c]), int(offs[c] + wpcs[c]))
-        out[s] = chunked_pallas.body_to_cmajor(words[s], w, chunk)
+        out[s] = chunked.body_to_cmajor(words[s], w, chunk)
     return out.astype("<u4", copy=False).tobytes()
 
 
@@ -79,7 +76,7 @@ def _natural_blob(cmajor: np.ndarray, widths: np.ndarray,
         if not w:
             continue
         s = slice(int(offs[c]), int(offs[c] + wpcs[c]))
-        out[s] = chunked_pallas.body_from_cmajor(cmajor[s], w, chunk)
+        out[s] = chunked.body_from_cmajor(cmajor[s], w, chunk)
     return out
 
 
@@ -127,18 +124,12 @@ class CoilV1_1(TrimV1_0):
         widths = raw[12:12 + n_chunks].astype(np.uint8)
         body = raw[12 + n_chunks + wtab_pad:].view(np.uint32)
 
-        if (jax.default_backend() == "tpu" and
-                chunk == chunked_pallas.KERNEL_OK_CHUNK):
-            # one fused kernel pass: DMA + unpack + unzigzag + cumsum
-            return chunked_pallas.decode_chunked_stream(
-                body, widths, first, chunk, n, zigzag=True, prefix=True)
         nat = _natural_blob(np.ascontiguousarray(body), widths, chunk)
         z = chunked.unpack_chunks_auto(nat, widths, chunk).reshape(-1)[:n]
         # logical-shift unzigzag; the int32 form corrupts |delta| >= 2^30
-        from ..ops.scan_pallas import cumsum_u32_auto
         d = kernels.u32_unzigzag(jnp.asarray(z))
         d = d.at[0].set(0)
-        return jnp.uint32(first) + cumsum_u32_auto(d)
+        return jnp.uint32(first) + jnp.cumsum(d, dtype=jnp.uint32)
 
 
 registry.register(CoilV1_1())
@@ -147,11 +138,10 @@ registry.register(CoilV1_1())
 # ---------------------------------------------------------------------------
 # Fused float decode (decompress_segment(fused=True) hook)
 # ---------------------------------------------------------------------------
-# Mirrors algo_diff_v1_0._fused_for_diff: bins come from the fused
-# chunked kernel (one pass), then the SAME XLA dither+undo tail as the
-# Diff fused plane (bit-identical to decompress + dequantize -- same
-# dither spec and keys; the tail is copied op-for-op from
-# _diff_plane_fused, which the parity tests pin).
+# Mirrors algo_diff_v1_0._fused_for_diff: the plane's bins, then the SAME
+# dither+undo tail as the Diff fused plane (bit-identical to decompress +
+# dequantize -- same dither spec and keys; the tail is copied op-for-op
+# from _diff_plane_fused, which the parity tests pin).
 
 import functools
 
@@ -171,48 +161,17 @@ def _coil11_undo_tail(bins, key, n: int, depth: int, x0, dx, box,
     return x
 
 
-_FLOATS_KERNEL_OK = True  # flipped off (per process) if the floats-mode
-# kernel ever fails to compile/run on this chip -- the two-stage path
-# (chip-proven bins kernel + XLA undo tail) is bit-identical, so decode
-# degrades in speed only, never in correctness
-
-
 def _coil11_plane_floats(self, payload_words, key, n: int, depth: int,
                          x0, dx, box, periodic: bool):
-    global _FLOATS_KERNEL_OK
-    raw = np.ascontiguousarray(payload_words).view(np.uint8)
-    n_chunks = int(raw[:4].view(np.uint32)[0])
-    chunk_log2 = int(raw[8])
-    if (_FLOATS_KERNEL_OK and jax.default_backend() == "tpu" and
-            8 <= chunk_log2 <= 17 and
-            (1 << chunk_log2) == chunked_pallas.KERNEL_OK_CHUNK):
-        # full float decode in ONE kernel pass (unpack + unzigzag +
-        # cumsum + dither + undo + rewrap); bit-identical to the
-        # two-stage path below (tests + the tpu_smoke gate)
-        first = int(raw[4:8].view(np.uint32)[0])
-        widths = raw[12:12 + n_chunks].astype(np.uint8)
-        body = raw[12 + n_chunks + ((-n_chunks) % 4):].view(np.uint32)
-        try:
-            return chunked_pallas.decode_chunked_stream_floats(
-                np.ascontiguousarray(body), widths, first,
-                chunked_pallas.KERNEL_OK_CHUNK, n, np.asarray(key),
-                depth, x0, dx, box, periodic)
-        except Exception as exc:  # pragma: no cover - chip-specific
-            import warnings
-            warnings.warn(
-                "chunked floats kernel unavailable on this backend "
-                f"({type(exc).__name__}: {exc}); falling back to the "
-                "two-stage decode for this process")
-            _FLOATS_KERNEL_OK = False
     bins = self._decode_plane(payload_words, 0, n)
     return _coil11_undo_tail(jnp.asarray(bins), key, n, depth, x0, dx,
                              jnp.float32(box), periodic)
 
 
 def _fused_for_coil11(self, hd, blocks, field_index):
-    """decompress_field_fused for Coil v1.1 float fields: the fused
-    chunked-kernel bins + the Diff-style undo tail (see TrimV1_0's
-    method for the contract)."""
+    """decompress_field_fused for Coil v1.1 float fields: the plane's
+    bins + the Diff-style undo tail (see TrimV1_0's method for the
+    contract)."""
     from ..ops import rng as _rng
     from ..quant.engine import depth_to_delta
     from ..segment.stream import Reader

@@ -67,10 +67,8 @@ class DiffV1_0(TrimV1_0):
         # Logical-shift unzigzag (kernels.u32_unzigzag): the old int32
         # spelling corrupted every |delta| >= 2^30.  All-u32 arithmetic
         # wraps mod 2^32 exactly like the encode.
-        from ..ops.scan_pallas import cumsum_u32_auto
         d = kernels.u32_unzigzag(z)
-        rest = first + cumsum_u32_auto(d)  # streaming Pallas scan on
-        # TPU (7x jnp.cumsum); bit-identical (u32 wrap, associative)
+        rest = first + jnp.cumsum(d, dtype=jnp.uint32)
         # device-resident: bins stay on device through dequantization
         return jnp.concatenate([jnp.asarray([first], dtype=jnp.uint32),
                                 rest])
@@ -91,26 +89,10 @@ def _diff_plane_fused(words, key, width: int, n: int, depth: int, x0, dx,
     from ..ops import rng as _rng
 
     first = jnp.uint32(words[0])
-    from ..ops import decode_pallas
-    from ..ops.scan_pallas import cumsum_u32_auto
-    m = n - 1
-    if jax.default_backend() == "tpu" and \
-            decode_pallas.rows_kernel_eligible(width, -(-m // 32) * 32):
-        # Pallas unpack (the XLA funnel unpack measured ~15.6 GB/s and
-        # capped the whole diff decode); pad to 32 elements, drop the
-        # garbage tail -- bit-identical to uniform_unpack (parity-tested)
-        m_pad = -(-m // 32) * 32
-        wp = m_pad * width // 32
-        wbody = words[1:]
-        if wp > wbody.shape[0]:
-            wbody = jnp.pad(wbody, (0, wp - wbody.shape[0]))
-        z = decode_pallas.unpack_pallas_rows(
-            wbody.reshape(1, -1), width, m_pad)[0][:m]
-    else:
-        z = bitpack.uniform_unpack(words[1:], width, m)
+    z = bitpack.uniform_unpack(words[1:], width, n - 1)
     z = jax.lax.optimization_barrier(z)
     d = kernels.u32_unzigzag(z)  # logical shift; int32 corrupts >= 2^30
-    rest = first + cumsum_u32_auto(d)
+    rest = first + jnp.cumsum(d, dtype=jnp.uint32)
     bins = jnp.concatenate([jnp.asarray([first], dtype=jnp.uint32),
                             rest])
     bins = jax.lax.optimization_barrier(bins)

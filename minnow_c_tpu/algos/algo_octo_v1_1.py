@@ -4,9 +4,7 @@ frozen.
 Wire evolution over Octo v1.0 (minor bump, header_format.tex:266-276):
 the Morton cell stream -- the codec's dominant plane -- switches from
 the Coil v1.0 chunk layout to the Coil v1.1 one (parametric chunk size
-+ column-major chunk bodies, ``algos/algo_coil_v1_1.py``), so on TPU it
-decodes through the fused single-pass kernel (ops/chunked_pallas.py,
-66 GB/s at 25M) instead of the gather-bound v1.0 path (1.5 GB/s).  The
++ column-major chunk bodies, ``algos/algo_coil_v1_1.py``).  The
 within-cell offset planes (packed raw per dim) are unchanged.
 
 Block layout and metadata are identical to v1.0 (``meta | morton |

@@ -58,11 +58,10 @@ def _sort_undo_device(deltas, rank_body, rank_width: int, n: int):
     the rank stream, un-permute.  Integer-exact, so bit-identical to the
     original host numpy path (frozen decode digests enforce).  Barriers
     keep the gather from fusing into consumers (~100x pathology)."""
-    from ..ops.scan_pallas import cumsum_u32_auto
-    # u32 streaming scan (Pallas on TPU, 7x jnp.cumsum); bit-identical:
-    # with x64 disabled the original uint64 cast was already uint32, and
-    # u32 addition wraps associatively.
-    sorted_vals = cumsum_u32_auto(deltas)
+    # u32 scan, bit-identical to the original: with x64 disabled its
+    # uint64 cast was already uint32, and u32 addition wraps
+    # associatively.
+    sorted_vals = jnp.cumsum(deltas, dtype=jnp.uint32)
     ranks = bitpack.uniform_unpack(rank_body, rank_width, n)
     ranks = jax.lax.optimization_barrier(ranks)
     sorted_vals = jax.lax.optimization_barrier(sorted_vals)

@@ -47,16 +47,15 @@ def _sort11_undo_device(deltas, rz, rank_first: int):
     """Device tail of Sort v1.1 decode: delta cumsum, rank un-zigzag +
     cumsum, un-permute.  Same integer arithmetic as the original host
     numpy path (int64 intermediates, u32 truncation) -- bit-identical."""
-    from ..ops.scan_pallas import cumsum_u32_auto
-    # u32 streaming scan (Pallas on TPU); bit-identical to the original
+    # u32 scans, bit-identical to the original
     # int64/uint64 spellings under disabled x64 (they were already
     # 32-bit) -- signed and unsigned 32-bit addition share bit patterns,
     # so the rank cumsum runs on the unzigzag bits via bitcast.
-    sorted_vals = cumsum_u32_auto(deltas)
+    sorted_vals = jnp.cumsum(deltas, dtype=jnp.uint32)
     zi = rz.astype(jnp.int32)
     d = (zi >> 1) ^ -(zi & 1)
-    rest = jnp.uint32(rank_first) + cumsum_u32_auto(
-        jax.lax.bitcast_convert_type(d, jnp.uint32))
+    rest = jnp.uint32(rank_first) + jnp.cumsum(
+        jax.lax.bitcast_convert_type(d, jnp.uint32), dtype=jnp.uint32)
     ranks = jnp.concatenate(
         [jnp.asarray([rank_first], dtype=jnp.uint32), rest])
     ranks = jax.lax.optimization_barrier(ranks)

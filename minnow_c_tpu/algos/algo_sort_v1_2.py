@@ -4,8 +4,8 @@ order-free profile, frozen.
 Wire evolution over Sort v1.1 (minor bump, header_format.tex:266-276):
 
 * **Parametric chunk size + column-major chunk bodies** (the Coil v1.1
-  machinery, ops/chunked_pallas.py): both the sorted-delta stream and
-  the rank stream decode through the fused single-pass kernel on TPU.
+  layout, algos/chunked.py) for both the sorted-delta stream and the
+  rank stream.
 * **Order-free profile** (``mode`` payload byte): the client can drop
   the rank stream entirely.  Decode then returns values in ASCENDING
   order -- lossless VALUES, surrendered ORDER -- which is Sort's actual
@@ -49,7 +49,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import semver
-from ..ops import chunked_pallas, kernels
+from ..ops import kernels
 from ..types import AlgoCode
 from . import chunked, registry
 from .algo_coil_v1_1 import BIG_PLANE, KERNEL_CHUNK, SMALL_CHUNK, \
@@ -72,18 +72,13 @@ def _encode_chunked(z: np.ndarray, chunk: int):
 def _decode_chunked(body: np.ndarray, widths: np.ndarray, first: int,
                     chunk: int, n: int, zigzag: bool):
     """Decode one chunked stream to ``first + cumsum(un-zigzag?(...))``,
-    device-resident (fused kernel on TPU at the kernel chunk size)."""
-    if (jax.default_backend() == "tpu" and
-            chunk == chunked_pallas.KERNEL_OK_CHUNK):
-        return chunked_pallas.decode_chunked_stream(
-            body, widths, first, chunk, n, zigzag=zigzag, prefix=True)
+    device-resident on an accelerator."""
     nat = _natural_blob(np.ascontiguousarray(body), widths, chunk)
     z = chunked.unpack_chunks_auto(nat, widths, chunk).reshape(-1)[:n]
-    from ..ops.scan_pallas import cumsum_u32_auto
     z = jnp.asarray(z)
     d = kernels.u32_unzigzag(z) if zigzag else z
     d = d.at[0].set(0)
-    return jnp.uint32(first) + cumsum_u32_auto(d)
+    return jnp.uint32(first) + jnp.cumsum(d, dtype=jnp.uint32)
 
 
 class SortV1_2(TrimV1_0):
@@ -195,9 +190,8 @@ class SortV1_2(TrimV1_0):
                                 n, zigzag=True)
         ranks = jax.lax.optimization_barrier(ranks)
         sorted_vals = jax.lax.optimization_barrier(sorted_vals)
-        # the order-restoring gather is this chip's hard floor
-        # (~0.4 GB/s element-granular; exp/coil_sort_gather.py) -- the
-        # order-free profile exists precisely to skip it
+        # the order-restoring element gather is the ranked decode's
+        # costliest step -- the order-free profile exists to skip it
         return sorted_vals[ranks]
 
 

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -258,7 +257,7 @@ class TrimV1_0:
                                blocks: List[Optional[bytes]],
                                field_index: int):
         """words -> Field in one fused device pipeline (unpack + dither +
-        undo + rewrap, ``ops.decode_pallas``), skipping the QField bins
+        undo + rewrap, ``ops.fastpath``), skipping the QField bins
         materialization.  Returns None when the field is ineligible
         (non-Trim plane coding, per-particle depths, log scaling, corrupt
         blocks) -- callers fall back to the generic path.  Output bits are
@@ -271,18 +270,13 @@ class TrimV1_0:
             return None
         if any(b is None for b in blocks) or not blocks:
             return None
-        from ..ops import decode_pallas, fastpath
+        from ..ops import fastpath
         from ..ops import rng as _rng
         from ..quant.engine import depth_to_delta
         from ..types import (FloatAccuracy, PositionAccuracy,
                              VelocityAccuracy)
 
-        on_tpu = jax.default_backend() == "tpu"
-
         def plane(words, key, depth, x0v, dxv, box, periodic):
-            if on_tpu:
-                return decode_pallas.decode_pallas(
-                    words, key, depth, n, x0v, dxv, box, periodic=periodic)
             return fastpath.fast_uniform_decode(
                 words, key, depth, n, x0v, dxv,
                 periodic_width=(box if periodic else None))

@@ -2,8 +2,8 @@
 
 Wire evolution over Trim v1.0, changing ONLY the Deltas-mode (per-particle
 accuracy) plane payload: instead of an exact per-element-width contiguous
-bitstream -- whose encoder is a scatter-add (segment-sum) that runs ~100x
-slow on TPU -- each 256-element chunk packs uniformly at the chunk's
+bitstream -- whose encoder is a scatter-add (segment-sum) -- each
+256-element chunk packs uniformly at the chunk's
 maximum depth (``algos/chunked.py`` machinery, vectorized pack/unpack with
 bucketed shapes).  Since per-particle accuracy requests cluster in
 practice, the size cost is small; the uniform-depth path is byte-identical
@@ -38,9 +38,9 @@ class TrimV1_1(TrimV1_0):
     version = VERSION
 
     def _encode_plane_var(self, bins, depths: np.ndarray):
-        # Device path (round 4): bins stay on device through pad/reshape/
-        # pack (chunked.pack_chunks_auto -- the bucketed Pallas rows pack
-        # on TPU); only the byte-assembly crosses to the host.  The chunk
+        # Device path: bins stay on device through pad/reshape/pack
+        # (chunked.pack_chunks_auto); only the byte-assembly crosses to
+        # the host.  The chunk
         # width table derives from the (tiny-per-chunk) host depths
         # array, NOT the values, so no stats fetch is needed.
         import jax.numpy as jnp
@@ -50,7 +50,7 @@ class TrimV1_1(TrimV1_0):
         dp[:n] = np.asarray(depths, dtype=np.uint8)
         widths = dp.reshape(n_chunks, chunked.CHUNK).max(axis=1) \
             if n_chunks else np.zeros(0, np.uint8)
-        if chunked._use_device():
+        if chunked.use_device(bins):
             vals = jnp.asarray(bins).astype(jnp.uint32)
             pad = n_chunks * chunked.CHUNK - n
             if pad:
@@ -78,8 +78,8 @@ class TrimV1_1(TrimV1_0):
         n_chunks = int(raw[:4].view(np.uint32)[0])
         widths = raw[8:8 + n_chunks].astype(np.uint8)
         body = raw[8 + n_chunks + ((-n_chunks) % 4):].view(np.uint32)
-        # device-resident on TPU (chunked.unpack_chunks_auto); bins feed
-        # the fused undo without a host round trip
+        # device-resident on an accelerator (chunked.unpack_chunks_auto);
+        # bins feed the fused undo without a host round trip
         return chunked.unpack_chunks_auto(body, widths).reshape(-1)[:n]
 
 

@@ -1,6 +1,6 @@
 // Native host-side kernels for minnow_c_tpu.
 //
-// The TPU owns the array math (quantization, binning, bitpacking); this
+// The device owns the array math (quantization, binning, bitpacking); this
 // library owns the byte-granular, inherently sequential host stages:
 //
 //   * mnw_checksum      -- BSD-style rotating checksum over a byte stream
@@ -281,7 +281,7 @@ int32_t mnw_lz4_decompress(const uint8_t *src, int32_t src_len, uint8_t *dst,
 }
 
 // ---------------------------------------------------------------------------
-// Host-side uniform bitpack reference (bit-exact oracle for the TPU kernels,
+// Host-side uniform bitpack reference (bit-exact oracle for the device pack,
 // mirrors util_U32UniformPack / UndoUniformPack semantics).
 // ---------------------------------------------------------------------------
 

@@ -7,29 +7,25 @@ global bit g lives in output word ``g // 32`` at position ``g % 32``; spare
 bits in the last word are zero.  Word-straddling elements split across two
 words exactly as in the C straddle branch (util.c:343-351).
 
-TPU-native design -- no sequential bit cursor, no scatter:
+Data-parallel design -- no sequential bit cursor, no scatter:
 
-* ``uniform_pack``: expand each element into its ``width`` bits as a dense
-  (n, width) 0/1 matrix, reflatten to (n_words, 32), and fold with shifted
-  sums (disjoint bits => OR == ADD).  Everything is elementwise ops and a
-  row reduction that XLA vectorizes on the VPU; there is no data-dependent
-  control flow.
+* ``uniform_pack``: 32 elements at ``width`` bits fill exactly ``width``
+  words, so each element's lo/hi word contributions sit at static
+  (word, shift) positions and fold into the block's words (disjoint bits
+  => OR == ADD).  Everything is elementwise ops and one fold per block;
+  there is no data-dependent control flow.
 
-* ``uniform_unpack``: the decode hot path.  Words are paired into u64
-  windows so each element is a single aligned 64-bit funnel read:
-  ``val[i] = (w64[(i*w)//32] >> (i*w % 32)) & mask`` -- one gather plus
-  elementwise shifts.  A dense bit-matrix fallback with identical semantics
-  is kept for cross-checking (``uniform_unpack_dense``).
+* ``uniform_unpack``: the decode hot path -- the same static block
+  structure read back with 32 column slices and funnel shifts, no gather.
+  A gather-based funnel read (``uniform_unpack_gather``) and a dense
+  bit-matrix unpack (``uniform_unpack_dense``) with identical semantics
+  are kept for cross-checking.
 
 * ``pack`` / ``unpack``: per-element widths (the Deltas/per-particle-depth
   mode).  Bit offsets are an exclusive prefix sum of widths; contributions
   are folded with a segment-sum over destination words.
 
-All functions are jit-safe with static ``width``.  Pallas-tiled variants
-(identical semantics, VMEM-resident intermediates) live in
-``encode_pallas.py`` (production pack; ``pack_pallas.py`` is the
-superseded experiment kept as a Mosaic-miscompile reproducer) and
-``decode_pallas.py`` (fused decode).
+All functions are jit-safe with static ``width``.
 """
 
 from __future__ import annotations
@@ -49,11 +45,10 @@ def packed_words(n: int, width: int) -> int:
 
 # Block structure: 32 elements at `width` bits occupy exactly `width` u32
 # words (32*width bits).  Within a block every element's bit window is at a
-# *static* (word, offset), so pack and unpack unroll into 32 static
+# *static* (word, offset), so pack and unpack reduce to static
 # column-slice/shift/or steps over a (n_blocks, width) word matrix -- pure
-# vectorized VPU work with no gathers, no scatters, and no 32x bit-matrix
-# blowup.  This layout choice is what makes the kernels TPU-shaped; the
-# wire bitstream is unchanged from the C semantics.
+# vectorized work with no gathers, no scatters, and no 32x bit-matrix
+# blowup.  The wire bitstream is unchanged from the C semantics.
 
 
 def _pack_fold_32(vals, width: int):
@@ -63,8 +58,9 @@ def _pack_fold_32(vals, width: int):
     ``width`` output words with static 0/1 selection matrices (disjoint
     bits => integer matmul == OR).  Chosen over a 32-way slice/OR unroll,
     which XLA's CPU backend miscompiles (wrong bits for interior columns,
-    observed jax 0.9.0), and over scatter-adds, which are ~100x slower on
-    TPU."""
+    observed jax 0.9.0), and over scatter-adds; on the GPU a masked sum
+    over the 32-element axis measured slower than this product
+    (PERF.md)."""
     lsh = np.array([(k * width) % 32 for k in range(32)], dtype=np.uint32)
     tgt = np.array([(k * width) // 32 for k in range(32)])
     straddle = (lsh + width) > 32
@@ -99,20 +95,16 @@ def uniform_pack(x, width: int):
     return words.reshape(-1)[:n_words]
 
 
-@functools.partial(jax.jit, static_argnames=("width", "prefer_pallas"))
-def uniform_pack_rows(x, width: int, prefer_pallas=None):
+@functools.partial(jax.jit, static_argnames=("width",))
+def uniform_pack_rows(x, width: int):
     """Pack each row of u32 array ``x`` of shape (rows, n) independently;
     requires ``n % 32 == 0``.  Row r's stream is bit-identical to
     ``uniform_pack(x[r], width)`` and occupies exactly (n//32)*width words
     (no partial tail word when 32 divides n), so the result is the dense
     (rows, (n//32)*width) matrix of per-row streams.
 
-    Exists because ``vmap(uniform_pack)`` over leading batch dims turns
-    the fold into a *batched* matmul, for which XLA's TPU layout
-    assignment picks a batch-dims-minor T(4,128) layout with ~21x pad
-    expansion (a 572 MB temp becomes 11.9 GB -> OOM at scale).  Folding
-    the batch into the matmul's row dimension keeps it a plain 2-D matmul
-    with a sane layout."""
+    Folds the batch into the fold's row dimension, so every stream of
+    the batch packs in one 2-D fold instead of a vmapped (batched) one."""
     rows, n = x.shape
     if n % 32 != 0:
         raise ValueError("uniform_pack_rows requires n % 32 == 0")
@@ -121,14 +113,6 @@ def uniform_pack_rows(x, width: int, prefer_pallas=None):
         return jnp.zeros((rows, out_words), dtype=jnp.uint32)
     if width == 32:
         return x
-    if prefer_pallas is None:
-        prefer_pallas = jax.default_backend() == "tpu"
-    if prefer_pallas and n >= (1 << 14):
-        # Lane-dense Pallas pack, wire-identical (~7x the einsum fold on
-        # v5e); this function is never vmapped, so the pallas_call is
-        # safe here.  See ops/encode_pallas.py.
-        from . import encode_pallas
-        return encode_pallas.pack_pallas_rows(x, width)
     vals = x.reshape(rows * (n // 32), 32) & jnp.uint32((1 << width) - 1)
     words = _pack_fold_32(vals, width)
     return words.reshape(rows, out_words)
@@ -168,17 +152,16 @@ def pl_cdiv(a: int, b: int) -> int:
 
 def uniform_unpack(x, width: int, n: int):
     """Unpack ``n`` elements of ``width`` bits from u32 array ``x``
-    (util_U32UndoUniformPack, util.c:357-406).  Dispatches to the
-    block-structured no-gather kernel (the TPU fast path)."""
+    (util_U32UndoUniformPack, util.c:357-406) with the block-structured
+    no-gather unpack."""
     return uniform_unpack_blocked(x, width, n)
 
 
 @functools.partial(jax.jit, static_argnames=("width", "n"))
 def uniform_unpack_gather(x, width: int, n: int):
     """Gather-based funnel unpack: pair adjacent words into u64 windows,
-    one 64-bit read + shift per element.  Kept for cross-checking; on TPU
-    the gather fuses badly into consumers, so the blocked kernel is the
-    default."""
+    one 64-bit read + shift per element.  Kept for cross-checking; the
+    blocked unpack is the default."""
     if n == 0:
         return jnp.zeros((0,), dtype=jnp.uint32)
     if width == 0:

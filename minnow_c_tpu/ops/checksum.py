@@ -1,8 +1,8 @@
 """BSD-style rotating checksum (util_Checksum, util.c:438-445).
 
 The recurrence ``c = ror1(c) + byte`` is carry-coupled and therefore
-inherently sequential per stream -- a poor fit for the TPU vector units --
-so it runs on the host in native code, parallelized across independent
+inherently sequential per stream -- a poor fit for vector units -- so it
+runs on the host in native code, parallelized across independent
 fields/blocks by the callers (per-field checksums: funcs.c:72; per-block
 checksums: header_format.tex:179-196).
 

@@ -6,13 +6,11 @@ pack, decode = unpack -> dithered un-bin -> rewrap.  These helpers fuse
 each direction into a single jitted program with
 ``jax.lax.optimization_barrier`` between stages.
 
-Why the barriers: on the TPU backend, XLA fusing the bitstream unpack
-(32-way stacked funnel shifts) into the float consumers produces a
-pathological program (~70x slower than the staged pipeline, measured 2000ms
-vs 28ms for 25M elements); the barrier keeps each stage's own vectorization
-while avoiding extra dispatches and keeping intermediates out of
-entry/exit layouts (a stack+reshape materialized as a jit *output* is
-similarly pathological, ~200ms).
+The barriers keep the bitstream unpack (32-way stacked funnel shifts) and
+the pack out of the float stages' fusions; they were added against a
+compiler that fused those chains into a pathologically slow program.
+They cost one round trip of the intermediate through device memory, and
+whether the GPU needs them is an open measurement (ROADMAP).
 """
 
 from __future__ import annotations
@@ -72,10 +70,8 @@ def _fast_uniform_encode_xla(x, level: int, box, periodic: bool):
 
 @functools.partial(jax.jit, static_argnames=("level", "periodic"))
 def _fast_uniform_encode_recip_xla(x, level: int, box, periodic: bool):
-    """The recip scale mode in XLA (the CPU / small-input path):
-    op-for-op the kernel sequence of ops/encode_pallas._recip_body, so
-    the stream is bit-identical to the fused Pallas encode."""
-    from .encode_pallas import _recip_bins_xla
+    """The recip scale mode: unwrap, min/max, rn(1/range), then the
+    anchored recip bin map and the pack."""
 
     def unwrap(v):
         return kernels.undo_periodic(v, box) if periodic else v
@@ -84,7 +80,7 @@ def _fast_uniform_encode_recip_xla(x, level: int, box, periodic: bool):
     x0 = jnp.min(u1)
     rng_v = jnp.max(u1) - x0
     recip = kernels.exact_recip(rng_v)
-    bins = _recip_bins_xla(x, x0, recip, box, x[0], level, periodic)
+    bins = kernels.recip_bins(x, x0, recip, box, x[0], level, periodic)
     bins = jax.lax.optimization_barrier(bins)
     words = bitpack.uniform_pack(bins, level)
     return words, x0, rng_v
@@ -97,26 +93,13 @@ def fast_uniform_encode(x, level: int, periodic_width=None,
     the (x0, range) pair is the plane's quantization header.
 
     ``scale_mode``: 'div' (default) is the C-exact division bin map
-    (util.c:173-196 semantics); 'recip' multiplies by the exactly-rounded
-    reciprocal instead (kernels.uniform_bin_index_recip) -- same error
-    class, wire-compatible (the bin map is the encoder's choice), and it
-    lets the whole encode pass fuse into one Pallas kernel (measured
-    177.6 -> 299.2 GB/s on v5e, exp/encode_fused2.py).
-
-    On TPU both modes route through the fused Pallas encodes (for 'div',
-    XLA keeps the wire-defining float division; Pallas does trunc/clamp
-    and the lane-dense pack) -- bit-identical to the XLA paths either
-    way (parity-tested)."""
+    (util.c:173-196 semantics); 'recip' multiplies every element by the
+    exactly-rounded reciprocal of the range instead
+    (kernels.uniform_bin_index_recip): the same error class, and
+    wire-compatible, since the bin map is the encoder's choice and decode
+    never recomputes it."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu and x.shape[0] >= (1 << 14) and 1 <= level <= 24:
-        from . import encode_pallas
-        if scale_mode == "recip":
-            return encode_pallas.encode_pallas_recip(
-                x, level, periodic_width=periodic_width)
-        return encode_pallas.encode_pallas(x, level,
-                                           periodic_width=periodic_width)
     periodic = periodic_width is not None
     box = jnp.float32(periodic_width if periodic else 0.0)
     if scale_mode == "recip":

@@ -13,7 +13,6 @@ The genuinely hard kernel -- variable-width bitpacking -- lives in
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -97,60 +96,45 @@ def u64_undo_periodic(x, L):
 # Error-bounded quantization -- the only lossy steps (util.c:145-242)
 # ---------------------------------------------------------------------------
 
-_SPLIT_F32 = 4097.0  # 2^12 + 1, Veltkamp splitter for f32
-
-_FORCE_CORRECTED = False  # test hook: exercise the TPU corrected-divide
-#                           sequence (incl. its overflow fallback) on CPU
-
-
-def _two_prod(a, b):
-    """Error-free product: (p, e) with p = rn(a*b) and p + e == a*b
-    exactly (Dekker, via Veltkamp splitting -- uses only exactly-rounded
-    mul/add/sub, no FMA required)."""
-    s = jnp.float32(_SPLIT_F32)
-    p = a * b
-    ta = a * s
-    ah = ta - (ta - a)
-    al = a - ah
-    tb = b * s
-    bh = tb - (tb - b)
-    bl = b - bh
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
-
-
 def exact_div(x, d):
-    """f32 division matching IEEE correct rounding across backends.
+    """f32 division with IEEE correct rounding on every backend.
 
-    XLA:TPU has no f32 divide unit and lowers division to a reciprocal
-    sequence that is 1 ulp off on ~73% of quotients (measured on v5e,
-    round 4) -- which flips ~0.03% of div-mode bin indices at bin
-    boundaries vs the CPU/C-exact wire.  On TPU, refine with two
-    exact-residual correction steps (TwoProd residual, no FMA): zero
-    mismatches vs IEEE in 2^24 targeted trials and 2 per 2^27 in an
-    adversarial divisor hunt for the raw quotient; a *bin* flip
-    additionally requires the quotient to sit on a bin boundary, which
-    has never been observed (the on-chip digest gate ``make tpu-test``
-    re-checks every round).  On CPU the hardware divide is already
-    correctly rounded and is used directly (the corrected sequence has
-    its own ~1e-8 1-ulp tail and must not replace a correct divide)."""
-    if jax.default_backend() != "tpu" and not _FORCE_CORRECTED:
-        return x / d
-    r = jnp.float32(1.0) / d
-    q = x * r
+    XLA:GPU lowers f32 division to an approximate sequence (a third of
+    quotients 1 ulp off on an H200), which flips bin indices at bin
+    boundaries against the C-exact wire, and LLVM folds an f64 divide
+    that is rounded to f32 back into that same f32 divide.  So the
+    backend's quotient q is corrected instead: for a candidate c the
+    residual x - c*d is exact in f64 (the product of two f32 needs 48
+    bits, and the difference is exact because c*d is within a factor of
+    two of x), and the correctly rounded quotient is the candidate with
+    the smallest |residual| (a quotient of binary floats is never a tie).
+    Two rounds over {q - 1 ulp, q, q + 1 ulp} cover a quotient up to 2
+    ulps off; non-finite quotients (d == 0, overflow) are left as the
+    backend gives them."""
+    x = jnp.asarray(x, jnp.float32)
+    d = jnp.asarray(d, jnp.float32)
+    q0 = x / d
+    xw = x.astype(jnp.float64)
+    dw = d.astype(jnp.float64)
+
+    def resid(c):
+        return jnp.abs(xw - c.astype(jnp.float64) * dw)
+
+    q = q0
     for _ in range(2):
-        p, e = _two_prod(q, d)
-        q = q + ((x - p) - e) * r
-    # The Veltkamp split overflows for |operand| >~ 8e34 (a*4097 -> inf)
-    # and r = 1/d overflows for subnormal d, turning q into NaN/Inf where
-    # a plain divide stays finite.  Degrade to the uncorrected divide for
-    # those pathological-but-legal f32 inputs instead of producing NaN
-    # bins (advisor round-4 finding).
-    return jnp.where(jnp.isfinite(q), q, x / d)
+        best, r_best = q, resid(q)
+        for c in (jnp.nextafter(q, jnp.float32(np.inf)),
+                  jnp.nextafter(q, jnp.float32(-np.inf))):
+            r = resid(c)
+            take = r < r_best
+            best = jnp.where(take, c, best)
+            r_best = jnp.where(take, r, r_best)
+        q = best
+    return jnp.where(jnp.isfinite(q0), q, q0)
 
 
 def exact_recip(d):
-    """rn(1 / d) across backends (see ``exact_div``)."""
+    """rn(1 / d) on every backend (see ``exact_div``)."""
     return exact_div(jnp.float32(1.0), d)
 
 
@@ -173,7 +157,7 @@ def uniform_bin_index(x, level, x0, dx):
     out = jnp.where(delta < 0, jnp.uint32(0),
                     jnp.where(delta >= 1, top, scaled))
     # Constant plane (dx == 0): delta = 0/0 = NaN, and NaN->int is
-    # hardware-defined (0 on XLA:CPU, unspecified on Mosaic).  Pin it to
+    # hardware-defined (0 on XLA:CPU, unspecified elsewhere).  Pin it to
     # bin 0 so the wire is deterministic everywhere (the reference C is
     # UB here, util.c:159-166; doc/parity_matrix.md divergences).
     return jnp.where(jnp.isnan(delta), jnp.uint32(0), out)
@@ -188,10 +172,8 @@ def uniform_bin_index_recip(x, level, x0, dx):
         bins   = trunc(clamp(q0 * 2^level))
 
     Every per-element op is an exactly-rounded mul/sub, so this map is
-    bit-reproducible across numpy, XLA, and Mosaic -- which is what lets
-    the whole encode pass (unwrap + scale + bin + pack) fuse into ONE
-    Pallas kernel (Mosaic's f32 division is approximate, so the C-exact
-    division map of ``uniform_bin_index`` cannot).  |q0 - rn((x-x0)/dx)|
+    bit-reproducible on every backend and in numpy, and it replaces a
+    per-element division by a multiplication.  |q0 - rn((x-x0)/dx)|
     <= ~1 ulp, so a value within ~1 ulp of a bin boundary may land one
     bin over; the decode-side dither bound grows by at most
     2^-23 * dx -- the same error class the division map itself carries at
@@ -214,6 +196,25 @@ def uniform_bin_index_recip(x, level, x0, dx):
         level, (int, np.integer)) else (num_bins - 1).astype(jnp.int32)
     si = jnp.where(scaled < 0, jnp.int32(0),
                    jnp.where(scaled >= num_bins, top, si))
+    return jnp.where(jnp.isnan(scaled), jnp.int32(0), si).astype(jnp.uint32)
+
+
+def recip_bins(x, x0, recip, box, anchor, width: int, periodic: bool):
+    """The recip bin map of ``uniform_bin_index_recip`` for one plane whose
+    reciprocal range ``recip`` = rn(1 / range) the caller already holds
+    (the block-shared range of the batched writers), with the periodic
+    unwrap anchored at ``anchor`` (the plane's element 0) folded in.
+    Bit-identical per element to unwrapping with ``undo_periodic`` and
+    binning with ``uniform_bin_index_recip``."""
+    if periodic:
+        half = box * jnp.float32(0.5)
+        x = jnp.where(x - anchor >= half, x - box, x)
+        x = jnp.where(x - anchor < -half, x + box, x)
+    nb = jnp.float32(np.float32(np.exp2(width, dtype=np.float64)))
+    scaled = ((x - x0) * recip) * nb
+    si = scaled.astype(jnp.int32)
+    si = jnp.where(scaled < 0, jnp.int32(0),
+                   jnp.where(scaled >= nb, jnp.int32((1 << width) - 1), si))
     return jnp.where(jnp.isnan(scaled), jnp.int32(0), si).astype(jnp.uint32)
 
 
@@ -310,7 +311,7 @@ def u8_undo_delta_encode(x):
 # ---------------------------------------------------------------------------
 # Delta + zigzag coding of bin indices (Diff algorithm building block).
 # Not present in the reference's util.c -- this realizes the spec'd Diff
-# algorithm (types.h:16, header_format.tex tab. 3) as a TPU-friendly
+# algorithm (types.h:16, header_format.tex tab. 3) as a vectorized
 # subtract / cumsum pair.
 # ---------------------------------------------------------------------------
 

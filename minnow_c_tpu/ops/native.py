@@ -87,7 +87,7 @@ def lib() -> ctypes.CDLL:
 
 
 def uniform_pack_host(x: np.ndarray, width: int) -> np.ndarray:
-    """Host bitpack oracle (bit-exact vs the TPU kernel)."""
+    """Host bitpack oracle (bit-exact vs ``bitpack.uniform_pack``)."""
     from . import bitpack
     if not (0 <= width <= 32):
         raise ValueError(f"width {width} not in [0, 32]")

@@ -10,10 +10,10 @@ Two generators live here:
    reference's RNG contract -- ``seed(seed, n)`` produces n non-overlapping
    streams for parallel decode, exactly like ``rand_Seed``.
 
-2. ``uniform_dither`` -- the TPU-native dither source: an explicitly
+2. ``uniform_dither`` -- the device dither source: an explicitly
    specified counter-based Threefry (see the section comment below), so it
-   is stateless, order-independent, and identical on CPU, TPU, and host
-   numpy.  The reference seeds its decode dither from ``clock()``
+   is stateless, order-independent, and identical on every XLA backend and
+   in host numpy.  The reference seeds its decode dither from ``clock()``
    (quant.c:639), which makes decode nondeterministic; we instead carry a
    seed in the stream header and derive per-field, per-element randomness
    by key derivation.  This is a deliberate, documented divergence
@@ -137,7 +137,7 @@ class Xoroshiro128Plus:
 
 
 # ---------------------------------------------------------------------------
-# TPU-native counter-based dither: explicit Threefry-2x32
+# Counter-based dither: explicit Threefry-2x32
 # ---------------------------------------------------------------------------
 #
 # The dither RNG is part of the *stream format* (decode must reproduce the
@@ -154,9 +154,9 @@ class Xoroshiro128Plus:
 # 16-bit grain (the reference's rand_Float uses 24, rand.c:60-64): the
 # error bound |x - x'| <= delta is independent of grain, which only sets the
 # smoothness of the in-bin distribution, and four u16 lanes per counter
-# quadruple decode throughput on the VPU.
+# quadruple the dither lanes per Threefry call.
 # Identical implementations exist here for numpy (host oracle) and
-# jax.numpy (XLA), and in Pallas kernels; all are tested bit-equal.
+# jax.numpy (XLA); they are tested bit-equal.
 # The key derivation replaces the reference's jump-separated sequential
 # streams (rand.c:93-112): any (field, dim, element) is addressable
 # independently, which is what makes vectorized and sharded decode

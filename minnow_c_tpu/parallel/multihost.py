@@ -5,40 +5,50 @@ recipe: every process calls ``initialize()`` (jax.distributed) so all
 hosts' devices form one global mesh; block-DP sharded arrays are built
 from per-host local shards with ``make_array_from_process_local_data``;
 the codec's SPMD programs (``sharding.ShardedPositionCodec``) then run
-unchanged -- XLA inserts ICI/DCN collectives for the header all-reduce,
-and each host writes the segments of its own blocks (ordered gather by
-block index).
+unchanged -- XLA inserts the collectives for the header all-reduce, and
+each host writes the segments of its own blocks (ordered gather by block
+index).
 
-No multi-host hardware exists in this environment; the logic is tested
-with two coordinator-connected CPU processes on one machine
-(tests/test_multihost.py), which exercises the same jax.distributed code
-paths.
+Several processes on one GPU host must each take their own card
+(``local_device_ids``): a JAX process reserves most of a card's memory
+when it first uses it, so ranks that all claim every card run out of
+memory.  The logic is tested with two coordinator-connected CPU processes
+on one machine (tests/test_multihost.py), which exercises the same
+jax.distributed code paths; no multi-process run on GPUs has been made
+yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
-    """Join the jax.distributed cluster (no-op for single-process)."""
+               process_id: Optional[int] = None,
+               local_device_ids: Optional[Sequence[int]] = None) -> None:
+    """Join the jax.distributed cluster (no-op for single-process).
+
+    ``local_device_ids``: the cards of this host this process uses; ranks
+    that share a host pass their own, e.g. ``[local_rank]`` for one rank
+    per card.  None takes every local device."""
     import jax
     if coordinator_address is not None and num_processes is None:
         # Forward for auto-detection rather than silently staying
         # single-process (which would make every host build its own
         # disjoint "global" array with no error).
         jax.distributed.initialize(coordinator_address=coordinator_address,
-                                   process_id=process_id)
+                                   process_id=process_id,
+                                   local_device_ids=local_device_ids)
         return
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
 
 
 def global_block_array(local_blocks: np.ndarray, mesh):

@@ -2,7 +2,7 @@
 particle snapshots over a device mesh.
 
 The client-side contract of the reference (segmenting is the client's
-duty, doc/separation_of_duties.md) realized TPU-natively: a snapshot is
+duty, doc/separation_of_duties.md) realized on an accelerator: a snapshot is
 split into equal particle blocks; all blocks' positions/velocities are
 quantized, binned, and bitpacked in batched device passes (sharded over
 the mesh when one is provided); IDs are decomposed device-wide and packed
@@ -62,20 +62,13 @@ import functools
 def _batched_stats_pos(x, width):
     """(B, 3, nb) -> per-block x0 (B,3), per-block shared range (B,).
 
-    Stats only: the unwrapped plane is deliberately NOT returned.
-    Materializing it as a jit output (one full HBM write + re-read by the
-    pack phase) measured ~5x on the fused encode; the pack phase
+    Stats only: the unwrapped plane is deliberately NOT returned, which
+    would cost a full write and re-read of device memory; the pack phase
     recomputes the unwrap instead, bit-identically (undo_periodic is
-    deterministic; see exp/encode_traffic.py).
+    deterministic).
 
-    Module-level jit: wrapping these in fresh ``jax.jit(lambda ...)`` per
-    call forced an executable reload every invocation (~30-60 s each on
-    this runtime)."""
-    if jax.default_backend() == "tpu":
-        # One fused HBM read (bit-identical; see sharding._float_rows_stats).
-        from .sharding import _float_rows_stats
-        return _float_rows_stats(x, width, True, False)
-
+    Module-level jit: a fresh ``jax.jit(lambda ...)`` per call would
+    trace and load a new executable on every invocation."""
     def one(xb):
         xu = jax.vmap(lambda d: kernels.undo_periodic(d, width))(xb)
         x0 = jnp.min(xu, axis=1)
@@ -92,12 +85,6 @@ def _batched_stats_vel(x, sym_log10_scaled: int = 0,
     plane only; the (deterministic) symlog/identity map is recomputed by
     the pack phase."""
     from ..quant.engine import map_float
-    if not sym_log10_scaled and jax.default_backend() == "tpu":
-        # Identity map: one fused HBM read (bit-identical; see
-        # sharding._float_rows_stats).  The symlog map is transcendental
-        # (Mosaic-approximate), so that path stays in XLA.
-        from .sharding import _float_rows_stats
-        return _float_rows_stats(x, None, True, False)
 
     def one(xb):
         xm = map_float(xb, 2 if sym_log10_scaled else 0, threshold)
@@ -109,10 +96,8 @@ def _batched_stats_vel(x, sym_log10_scaled: int = 0,
 
 @functools.partial(jax.jit, static_argnames=("w",))
 def _batched_id_pack(rel, w: int):
-    # Row-folded pack when blocks are 32-aligned: a vmapped pack is a
-    # batched matmul, and XLA's TPU layout assignment gives batched
-    # matmuls a batch-dims-minor T(4,128) layout with ~21x pad expansion
-    # (see ops/bitpack.uniform_pack_rows).  Streams are identical: a
+    # Row-folded pack when blocks are 32-aligned (one 2-D fold for every
+    # block; see ops/bitpack.uniform_pack_rows).  Streams are identical: a
     # 32-aligned row has no partial tail word.
     if rel.shape[1] % 32 == 0:
         return bitpack.uniform_pack_rows(rel, w)
@@ -123,9 +108,7 @@ def _pack_bins_rows(bins, depth: int):
     """(B, D, nb) u32 bins -> (B, D, words) packed streams."""
     b_l, d, n_b = bins.shape
     if n_b % 32 == 0:
-        # fold (B, D) into the pack matmul's rows (layout hazard: a
-        # vmapped pack is a batched matmul with a ~21x-padded TPU layout,
-        # see ops/bitpack.uniform_pack_rows)
+        # fold (B, D) into the pack's rows (ops/bitpack.uniform_pack_rows)
         return bitpack.uniform_pack_rows(
             bins.reshape(b_l * d, n_b), depth).reshape(b_l, d, -1)
     return jax.vmap(jax.vmap(
@@ -138,9 +121,8 @@ def _batched_bin_pack_pos(x, x0, rng_b, depth: int, width):
     depth; recomputes the periodic unwrap (bit-identical to binning the
     stats pass's plane -- undo_periodic is deterministic).
 
-    The barrier between binning and packing matters: fused, this backend
-    compiles the composition ~1000x slow (47 s for 30M values vs ~50 ms
-    staged) -- the same pathology as fusing unpack into decode consumers.
+    The barrier between binning and packing keeps the two stages in
+    separate fusions (see ops/fastpath.py).
     """
     def one(xb, x0b, rb):
         xu = jax.vmap(lambda d: kernels.undo_periodic(d, width))(xb)
@@ -170,22 +152,19 @@ def _batched_bin_pack_vel(x, x0, rng_b, depth: int,
 
 
 def _recip_rows_or_fallback(x, x0, rng_b, depth: int, box):
-    """Recip-scale-mode batched bin+pack: one fused Pallas rows kernel on
-    TPU when 32 | nb (unwrap + scale + bin + pack, ~1.7x the div-mode
-    pipeline), else the op-identical XLA recip map + per-plane pack."""
+    """Recip-scale-mode batched bin+pack: the anchored recip map
+    (kernels.recip_bins) at the block-shared range, then the rows pack
+    when 32 | nb, else a per-plane pack."""
     from .sharding import _float_rows_encode_recip
     b, _, nb = x.shape
-    prefer = jax.default_backend() == "tpu"
     if nb % 32 == 0:
-        return _float_rows_encode_recip(x, x0, rng_b, depth, box, prefer,
-                                        False)
-    from ..ops.encode_pallas import _recip_bins_xla
+        return _float_rows_encode_recip(x, x0, rng_b, depth, box)
     periodic = box is not None
     boxf = jnp.float32(box if periodic else 0.0)
     recip = kernels.exact_recip(rng_b)
 
     def one(xb, x0b, rc):
-        return jax.vmap(lambda xd, o: _recip_bins_xla(
+        return jax.vmap(lambda xd, o: kernels.recip_bins(
             xd, o, rc, boxf, xd[0], depth, periodic))(xb, x0b)
 
     bins = jax.lax.optimization_barrier(jax.vmap(one)(x, x0, recip))
@@ -203,8 +182,6 @@ def _batched_bin_pack_vel_recip(x, x0, rng_b, depth: int,
                                 sym_log10_scaled: int = 0,
                                 threshold: float = 0.0):
     if sym_log10_scaled:
-        # The symlog map is transcendental (Mosaic-approximate), so it
-        # runs in XLA; the recip bin map + pack still fuse downstream.
         from ..quant.engine import map_float
         x = jax.vmap(lambda xb: map_float(xb, 2, threshold))(x)
     return _recip_rows_or_fallback(x, x0, rng_b, depth, None)
@@ -313,15 +290,6 @@ def _batched_stats_scalar(x, mode: int = 0, threshold: float = 0.0):
     (engine._quantize_ufloat / _dequantize_ufloat), so the stored x1 must
     be the true max for encode and decode to agree bit-for-bit."""
     from ..quant.engine import map_float
-    if not mode and jax.default_backend() == "tpu":
-        # One fused HBM read (see sharding._float_rows_stats); the log10
-        # maps are transcendental (Mosaic-approximate) and stay in XLA.
-        from ..ops import encode_pallas as _ep
-        b = x.shape[0]
-        mn, mx = _ep.stats_pallas_rows(
-            x, jnp.zeros((b,), jnp.float32), x[:, 0], False,
-            interpret=False)
-        return mn, mx
 
     def one(xb):
         xm = map_float(xb, mode, threshold)
@@ -563,8 +531,7 @@ def compress_snapshot(fp: BinaryIO,
     ``scale_mode``: 'div' (default) uses the C-exact division bin map;
     'recip' uses the reciprocal map (kernels.uniform_bin_index_recip) --
     same error bound class, wire-compatible streams (decode is
-    identical), and the whole encode pass fuses into one Pallas kernel
-    on TPU (~1.7x)."""
+    identical)."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
     from ..utils import native_order
@@ -1121,11 +1088,6 @@ def _decode_segment_list(segments, batched: bool = True,
     return out
 
 
-# Test hook: force the Pallas rows decode (interpret mode) on the CPU
-# backend to check bit parity without a chip.
-_FORCE_ROWS_DECODE = False
-
-
 @functools.partial(jax.jit, static_argnames=("depth", "nb", "periodic"))
 def _batched_float_decode(words, x0, rng_b, key, depth: int, nb: int,
                           periodic: bool, box):
@@ -1133,29 +1095,6 @@ def _batched_float_decode(words, x0, rng_b, key, depth: int, nb: int,
     key and counters 0..nb (exactly what per-segment decode does), so the
     dither vector is computed once and broadcast."""
     from ..ops import rng as _rng
-
-    from ..ops import decode_pallas as _dp
-    on_tpu = jax.default_backend() == "tpu"
-    # depth <= 24 matches the rows kernel's float cap (a corrupt/foreign
-    # meta depth must fall back, not raise out of the batched reader).
-    if (on_tpu or _FORCE_ROWS_DECODE) and depth <= 24 and \
-            _dp.rows_kernel_eligible(depth, nb):
-        # One Pallas grid over all (block, dim) streams (same kernel as
-        # the sharded codec's decode); identical bits -- the shared key
-        # just repeats per row, counters restart at 0 per stream exactly
-        # as the broadcast dither vector does.
-        from ..ops import decode_pallas
-
-        B, D = words.shape[0], words.shape[1]
-        keys = jnp.broadcast_to(
-            jnp.asarray(key, jnp.uint32).reshape(1, 2), (B * D, 2))
-        out = decode_pallas.decode_pallas_rows(
-            words.reshape(B * D, -1), keys, depth, nb,
-            x0.reshape(B * D).astype(jnp.float32),
-            jnp.repeat(rng_b.astype(jnp.float32), D),
-            box=(box if periodic else 0.0), periodic=periodic,
-            interpret=not on_tpu)
-        return out.reshape(B, D, nb)
 
     u = _rng.uniform_dither((key[0], key[1]), (nb,))
     dx = rng_b.astype(jnp.float32) / jnp.float32(1 << depth)
@@ -1340,8 +1279,6 @@ def _decompress_snapshot_batched(segments, want=None) -> Optional[dict]:
             width = metas[0][0]
             if any(m[0] != width for m in metas):
                 return None
-            from ..ops import decode_pallas
-            on_tpu = jax.default_backend() == "tpu"
             dims = []
             for d in range(3):
                 rows = []
@@ -1355,14 +1292,9 @@ def _decompress_snapshot_batched(segments, want=None) -> Optional[dict]:
                     rows.append(np.frombuffer(payload.tobytes(),
                                               dtype="<u4"))
                 words_d = jnp.asarray(np.stack(rows))
-                if (on_tpu or _FORCE_ROWS_DECODE) and \
-                        decode_pallas.rows_kernel_eligible(int(wbits), nb):
-                    bins = decode_pallas.unpack_pallas_rows(
-                        words_d, int(wbits), nb, interpret=not on_tpu)
-                else:
-                    bins = jax.vmap(
-                        lambda r: bitpack.uniform_unpack(r, int(wbits), nb)
-                    )(words_d)
+                bins = jax.vmap(
+                    lambda r: bitpack.uniform_unpack(r, int(wbits), nb)
+                )(words_d)
                 x0d = jnp.asarray(np.array([m[1][d] for m in metas],
                                            dtype=np.uint64))
                 dims.append(bins.astype(jnp.uint64) + x0d[:, None])

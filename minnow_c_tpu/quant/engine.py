@@ -1,6 +1,6 @@
 """Quantization engine: per-field-type quantize / dequantize.
 
-TPU-first re-design of the reference's ``src/quant.c``.  The engine is split
+Accelerator-first re-design of the reference's ``src/quant.c``.  The engine is split
 into *pure jitted array passes* and a thin host orchestration layer:
 
 * ``*_prepare`` passes (unwrap / remap / min-max) and ``*_bins`` passes
@@ -189,8 +189,7 @@ def dims_bins_uniform(xu, x0, dx, depth: int):
 def dims_bins_uniform_recip(xu, x0, dx, depth: int):
     """Recip-scale-mode variant of ``dims_bins_uniform``
     (kernels.uniform_bin_index_recip): same error class, different
-    (encoder-side) bin map; bit-identical to the fused TPU encode
-    kernels."""
+    (encoder-side) bin map."""
     return jax.vmap(
         lambda xd, o: kernels.uniform_bin_index_recip(xd, depth, o, dx))(
             xu, x0)
@@ -254,8 +253,8 @@ def quantize(field: Field, seed: int = 0,
              scale_mode: str = "div") -> QField:
     """Quantize one field.  ``scale_mode``: 'div' (default) is the
     C-exact division bin map; 'recip' multiplies by the exactly-rounded
-    reciprocal (kernels.uniform_bin_index_recip) -- the encoder-side map
-    the fused TPU kernels use; wire-compatible, same error class."""
+    reciprocal (kernels.uniform_bin_index_recip) -- an encoder-side map;
+    wire-compatible, same error class."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
     from ..utils import native_order

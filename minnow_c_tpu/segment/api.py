@@ -28,8 +28,8 @@ def quantize(s: Seg, seed: int = 0, scale_mode: str = "div") -> QSeg:
     """Quantize every field (Quantize, funcs.c:13-23).  ``seed`` is the
     segment's dither seed, carried into the stream for deterministic
     decode.  ``scale_mode`` picks the float bin map ('div' = C-exact
-    division, 'recip' = reciprocal multiply -- the fused-TPU-kernel map;
-    wire-compatible, see quant.engine.quantize)."""
+    division, 'recip' = multiply by the exactly-rounded reciprocal of the
+    range; wire-compatible, see quant.engine.quantize)."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
     return QSeg(fields=[engine.quantize(f, seed, scale_mode=scale_mode)
@@ -226,8 +226,8 @@ def decompress_segment(data: bytes, fused: bool = False,
     degrade gracefully).
 
     ``fused=True`` routes eligible fields (Trim plane coding, uniform
-    depth, linear scale) through the single-kernel device fast path
-    (``TrimV1_0.decompress_field_fused`` -> ops.decode_pallas), skipping
+    depth, linear scale) through the one-program device fast path
+    (``TrimV1_0.decompress_field_fused`` -> ops.fastpath), skipping
     the intermediate bin materialization; output bits are identical to the
     generic path (same dither spec and keys -- tested).  Ineligible fields
     fall back transparently.

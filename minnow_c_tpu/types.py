@@ -1,7 +1,7 @@
 """Core type system: field codes, algorithm codes, accuracy and quantization
 specs, field containers, and segments.
 
-TPU-native re-design of the reference's type layer (``src/types.h``).  Instead
+Accelerator-first re-design of the reference's type layer (``src/types.h``).  Instead
 of void-pointer ``Accuracy``/``Quantization`` structs dispatched on a u32 code,
 we use typed frozen dataclasses registered as JAX pytrees where they carry
 array data, and plain dataclasses where they are static metadata.  Static

@@ -413,7 +413,7 @@ class TestChunkedDevicePath:
         import jax.numpy as jnp
 
         from minnow_c_tpu.algos import chunked
-        monkeypatch.setattr(chunked, "_FORCE_DEVICE", True)
+        monkeypatch.setattr(chunked, "use_device", lambda x: True)
         for z in self._roundtrip_streams():
             zc_h, w_h = chunked.chunk_widths(z)
             zc_d, w_d = chunked.chunk_widths_auto(jnp.asarray(z))
@@ -433,6 +433,7 @@ class TestChunkedDevicePath:
         the same bytes and decoded values as the host path."""
         from minnow_c_tpu.algos import chunked
         from minnow_c_tpu.segment import api
+        host_choice = chunked.use_device
 
         rng = np.random.default_rng(1)
         n, W = 16384, 64.0
@@ -446,10 +447,10 @@ class TestChunkedDevicePath:
                 data=pos, acc=mnw.PositionAccuracy(delta=1e-3, width=W))])
             blob_h = api.compress_segment(seg, seed=7)
             out_h = api.decompress_segment(blob_h)
-            monkeypatch.setattr(chunked, "_FORCE_DEVICE", True)
+            monkeypatch.setattr(chunked, "use_device", lambda x: True)
             blob_d = api.compress_segment(seg, seed=7)
             out_d = api.decompress_segment(blob_d)
-            monkeypatch.setattr(chunked, "_FORCE_DEVICE", False)
+            monkeypatch.setattr(chunked, "use_device", host_choice)
             assert blob_h == blob_d, (algo, ver)
             np.testing.assert_array_equal(
                 np.asarray(out_h.fields[0].data),
@@ -482,8 +483,9 @@ class TestCoilV11:
 
     def test_big_chunk_path_roundtrip(self, monkeypatch):
         """Force the 16384-element chunk format at test scale and check
-        the host decode path round-trips (the kernel path is covered by
-        make tpu-test / bench_codecs on-chip)."""
+        the host decode path round-trips (the device path is covered by
+        test_device_vs_host_decode_parity and chip_smoke.py's delta
+        phase)."""
         from minnow_c_tpu.algos import algo_coil_v1_1 as c11
         monkeypatch.setattr(c11, "BIG_PLANE", 30000)
         seg, pos, *_ = seg_with(mnw.AlgoCode.COIL, n=40000)
@@ -519,12 +521,12 @@ class TestCoilV11:
         # 4 B/plane tag + LZ4 jitter from the shifted payload offsets
         assert len(b11) <= len(b10) * 1.005
 
-    def test_kernel_vs_host_decode_parity(self):
-        """decode via the interpret-mode kernel == the host chunked
-        path, bit for bit, on a big-chunk stream."""
+    def test_device_vs_host_decode_parity(self, monkeypatch):
+        """decode via the device chunked path == the host chunked path,
+        bit for bit, on a big-chunk stream."""
         import jax.numpy as jnp
         from minnow_c_tpu.algos import algo_coil_v1_1 as c11
-        from minnow_c_tpu.ops import chunked_pallas, kernels
+        from minnow_c_tpu.algos import chunked
         rng = np.random.default_rng(4)
         n = 3 * 16384 + 1000
         walk = np.cumsum(rng.integers(-30, 31, n), dtype=np.int64)
@@ -536,18 +538,11 @@ class TestCoilV11:
             payload, _ = codec._encode_plane(jnp.asarray(bins), 14)
         finally:
             c11.BIG_PLANE = old
-        raw = np.ascontiguousarray(payload).view(np.uint8)
-        n_chunks = int(raw[:4].view(np.uint32)[0])
-        first = int(raw[4:8].view(np.uint32)[0])
-        widths = raw[12:12 + n_chunks].astype(np.uint8)
-        body = raw[12 + n_chunks + ((-n_chunks) % 4):].view(np.uint32)
-        got = np.asarray(chunked_pallas.decode_chunked_stream(
-            np.ascontiguousarray(body), widths, first, 16384, n,
-            zigzag=True, prefix=True, interpret=True))
-        np.testing.assert_array_equal(got, bins)
-        # and the codec's own (host) decode agrees
         host = np.asarray(codec._decode_plane(payload, 0, n))
         np.testing.assert_array_equal(host, bins)
+        monkeypatch.setattr(chunked, "use_device", lambda x: True)
+        dev = np.asarray(codec._decode_plane(payload, 0, n))
+        np.testing.assert_array_equal(dev, bins)
 
 
 class TestSortV12:
@@ -635,8 +630,7 @@ class TestSortV12:
         assert err.max() <= 1e-3
 
     def test_big_chunk_kernel_parity(self):
-        """v1.2 decode through the interpret-mode kernel == host path
-        on a big-chunk ranked stream."""
+        """v1.2 round trip on a big-chunk ranked stream."""
         import jax.numpy as jnp
         from minnow_c_tpu.algos import algo_coil_v1_1 as c11
         from minnow_c_tpu.algos import algo_sort_v1_2 as s12
@@ -654,8 +648,8 @@ class TestSortV12:
 
 def test_coil11_fused_decode_bit_parity():
     """decompress_segment(fused=True) must produce bit-identical floats
-    to the generic path for Coil v1.1 fields (the round-5 fused hook:
-    kernel bins + the Diff-style undo tail)."""
+    to the generic path for Coil v1.1 fields (the fused hook: plane bins
+    + the Diff-style undo tail)."""
     seg, pos, vel, ids, uf, ui = seg_with(mnw.AlgoCode.COIL, n=9000)
     blob = api.compress_segment(seg, seed=11)
     a = api.decompress_segment(blob, fused=True)

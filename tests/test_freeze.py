@@ -98,6 +98,17 @@ DELTAS_ALGOS = {
 }
 
 
+def orderfree_segment():
+    """Sort v1.2 order-free profile (patch 1): a single-plane UNSI stream,
+    the mode-1 wire pinned separately from the ranked fixture."""
+    rng = np.random.default_rng(54321)
+    n = 4096
+    ui = (rng.permutation(1 << 18)[:n] + 3).astype(np.uint64)
+    hd = mnw.FieldHeader(mnw.FieldCode.UNSI, mnw.AlgoCode.SORT,
+                         _sv.pack(1, 2, 1), n)
+    return mnw.Seg(fields=[mnw.Field(hd=hd, data=ui, acc=mnw.IntAccuracy())])
+
+
 def current_digests():
     out = {}
     for name, (algo, ver) in DELTAS_ALGOS.items():
@@ -119,16 +130,7 @@ def current_digests():
         for f in seg.fields:
             h.update(np.ascontiguousarray(np.asarray(f.data)).tobytes())
         out[f"{name}_decode_sha256"] = h.hexdigest()
-    # Sort v1.2 order-free profile (patch 1): single-plane UNSI stream,
-    # the mode-1 wire pinned separately from the ranked fixture
-    rng = np.random.default_rng(54321)
-    n = 4096
-    ui = (rng.permutation(1 << 18)[:n] + 3).astype(np.uint64)
-    hd = mnw.FieldHeader(mnw.FieldCode.UNSI, mnw.AlgoCode.SORT,
-                         _sv.pack(1, 2, 1), n)
-    of_seg = mnw.Seg(fields=[mnw.Field(hd=hd, data=ui,
-                                       acc=mnw.IntAccuracy())])
-    blob = api.compress_segment(of_seg, seed=777)
+    blob = api.compress_segment(orderfree_segment(), seed=777)
     out["sort_v1_2_orderfree_encode_sha256"] = \
         hashlib.sha256(blob).hexdigest()
     out["sort_v1_2_orderfree_bytes"] = len(blob)

@@ -279,23 +279,17 @@ def test_constant_plane_encode_roundtrip():
 
 
 class TestExactDiv:
-    """The TPU corrected-divide sequence (exercised on CPU via the
-    _FORCE_CORRECTED test hook).  The Veltkamp split overflows for
-    |operand| >~ 8e34 and r = 1/d overflows for subnormal d; the guard
-    must degrade to the plain divide instead of emitting NaN bins
-    (advisor round-4 finding)."""
+    """kernels.exact_div corrects the backend's quotient with an exact f64
+    residual: the IEEE f32 quotient, the bin map's wire-defining division
+    on every backend.  Pathological operands must stay finite where a
+    plain divide is, and never turn into NaN bins."""
 
     def _corrected(self, x, d):
         import jax
         import jax.numpy as jnp
         from minnow_c_tpu.ops import kernels
-        old = kernels._FORCE_CORRECTED
-        kernels._FORCE_CORRECTED = True
-        try:
-            f = jax.jit(lambda a, b: kernels.exact_div(a, b))
-            return np.asarray(f(jnp.float32(x), jnp.float32(d)))
-        finally:
-            kernels._FORCE_CORRECTED = old
+        f = jax.jit(lambda a, b: kernels.exact_div(a, b))
+        return np.asarray(f(jnp.float32(x), jnp.float32(d)))
 
     def test_normal_operands_correctly_rounded(self):
         rng = np.random.default_rng(11)
@@ -312,11 +306,9 @@ class TestExactDiv:
         np.testing.assert_array_equal(out, x / d)
 
     def test_subnormal_divisor_falls_back(self):
-        """Subnormal d: 1/d overflows to inf and the corrected sequence
-        goes NaN; the guard must yield exactly the backend's plain
-        divide (XLA:CPU flushes subnormals to zero, so that may itself
-        be inf -- the contract is old-behavior degradation, not IEEE
-        subnormal handling).  Critically: never NaN."""
+        """Subnormal d yields exactly the backend's plain divide (XLA:CPU
+        flushes subnormals to zero, so that may itself be inf).
+        Critically: never NaN."""
         import jax
         import jax.numpy as jnp
         d = np.float32(1e-40)  # subnormal

@@ -2,7 +2,7 @@
 form one global mesh and run the sharded position codec end-to-end.
 
 This exercises the actual jax.distributed code paths (process-local
-shards, cross-process SPMD execution, collectives) that a multi-host TPU
+shards, cross-process SPMD execution, collectives) that a multi-host
 deployment uses, with DCN emulated over localhost."""
 
 import os

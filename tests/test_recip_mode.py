@@ -2,8 +2,8 @@
 (kernels.uniform_bin_index_recip) vs the default C-exact division map.
 
 Contracts verified here:
-  * XLA map == fused Pallas kernels (interpret mode), single-stream and
-    rows -- the cross-backend bit-identity that makes the map freezable;
+  * the device map == the numpy recip map, single-stream and rows --
+    the cross-backend bit-identity that makes the map freezable;
   * the encoder-side map swap is wire-compatible: recip streams decode
     through the unchanged decoders within the requested deltas;
   * engine / segment API / batched snapshot writer / sharded SPMD codec
@@ -22,7 +22,7 @@ import jax.numpy as jnp
 
 import minnow_c_tpu as mnw
 from minnow_c_tpu.algos import registry
-from minnow_c_tpu.ops import bitpack, encode_pallas, fastpath, kernels
+from minnow_c_tpu.ops import fastpath, kernels, native
 from minnow_c_tpu.parallel import snapshot
 from minnow_c_tpu.parallel.sharding import (
     ShardedPositionCodec,
@@ -64,39 +64,58 @@ class TestRecipMap:
         assert (np.diff(b.astype(np.int64)) >= 0).all()
 
 
-class TestPallasParityInterpret:
-    """Fused kernels vs the XLA map, bit for bit (interpret on CPU)."""
+def _recip_bins_np(x, x0, recip, box, width):
+    """The recip map in numpy: anchored unwrap, then
+    trunc(clamp(((x - x0) * recip) * 2^width)), one rounding per op."""
+    if box is not None:
+        half = np.float32(box) * np.float32(0.5)
+        a = x[0]
+        x = np.where(x - a >= half, x - np.float32(box), x)
+        x = np.where(x - a < -half, x + np.float32(box), x)
+    nb = np.float32(1 << width)
+    scaled = ((x - np.float32(x0)) * np.float32(recip)) * nb
+    si = np.where(scaled < 0, 0, np.where(scaled >= nb, (1 << width) - 1,
+                                          scaled.astype(np.int64)))
+    return si.astype(np.uint32)
+
+
+class TestRecipNumpyParity:
+    """The device recip encodes vs the numpy recip map, bit for bit."""
 
     def test_single_stream(self):
         rng = np.random.default_rng(1)
-        n = (1 << 14) * 3 + 160  # exercises cascade + XLA tail
-        x = jnp.asarray(rng.uniform(0, W, n).astype(np.float32))
+        n = (1 << 14) * 3 + 160  # not a multiple of 32
+        xh = rng.uniform(0, W, n).astype(np.float32)
         for periodic in (True, False):
             box = W if periodic else None
-            wk, x0k, rk = encode_pallas.encode_pallas_recip(
-                x, 14, periodic_width=box, interpret=True)
-            wx, x0x, rx = fastpath._fast_uniform_encode_recip_xla(
-                x, 14, jnp.float32(box if periodic else 0.0), periodic)
-            assert np.array_equal(np.asarray(wk), np.asarray(wx))
-            assert float(x0k) == float(x0x) and float(rk) == float(rx)
+            wx, x0x, rx = fastpath.fast_uniform_encode(
+                jnp.asarray(xh), 14, periodic_width=box, scale_mode="recip")
+            if periodic:
+                a = xh[0]
+                L = np.float32(W)
+                xu = np.where(xh - a >= L / 2, xh - L, xh)
+                xu = np.where(xu - a < -L / 2, xu + L, xu).astype(np.float32)
+            else:
+                xu = xh
+            lo, hi = xu.min(), xu.max()
+            assert float(x0x) == float(lo) and float(rx) == float(hi - lo)
+            bins = _recip_bins_np(xh, lo, np.float32(1) / (hi - lo), box, 14)
+            assert np.array_equal(np.asarray(wx),
+                                  native.uniform_pack_host(bins, 14))
 
     def test_rows_kernel(self):
+        from minnow_c_tpu.parallel.sharding import _rows_encode_recip_raw
         rng = np.random.default_rng(2)
-        rows, n = 6, 4096 + 32  # non-tile-multiple, 32-aligned
-        x = jnp.asarray(rng.uniform(0, W, (rows, n)).astype(np.float32))
-        x0 = jnp.asarray(rng.uniform(0, 4, rows).astype(np.float32))
-        rngv = jnp.asarray(rng.uniform(40, 60, rows).astype(np.float32))
-        recip = jnp.float32(1.0) / rngv
-        anchors = x[:, 0]
-        boxes = jnp.full((rows,), np.float32(W))
-        wk = encode_pallas.encode_pallas_recip_rows(
-            x, x0, recip, boxes, anchors, 11, True, interpret=True)
+        rows, n = 6, 4096 + 32  # 32-aligned
+        x = rng.uniform(0, W, (rows, n)).astype(np.float32)
+        x0 = rng.uniform(0, 4, rows).astype(np.float32)
+        rngv = rng.uniform(40, 60, rows).astype(np.float32)
+        wk = np.asarray(_rows_encode_recip_raw(
+            jnp.asarray(x), jnp.asarray(x0), jnp.asarray(rngv), 11, W))
         for r in range(rows):
-            bins = encode_pallas._recip_bins_xla(
-                x[r], x0[r], recip[r], jnp.float32(W), anchors[r], 11,
-                True)
-            wx = bitpack.uniform_pack(bins, 11)
-            assert np.array_equal(np.asarray(wk[r]), np.asarray(wx)), r
+            bins = _recip_bins_np(x[r], x0[r], np.float32(1) / rngv[r], W,
+                                  11)
+            assert np.array_equal(wk[r], native.uniform_pack_host(bins, 11)), r
 
 
 class TestSegmentAPI:
@@ -267,17 +286,16 @@ class TestShardedCodecs:
         err = np.minimum(err, W - err)
         assert err.max() <= 1e-3
 
-    def test_position_codec_recip_fused_rows_bits(self):
-        """Interpret-mode fused rows encode == XLA fallback bits."""
-        mesh = make_mesh(4)
+    def test_position_codec_recip_mesh_independent_bits(self):
+        """Recip encode on a 4-device mesh == on one device, bit for
+        bit."""
         depth = spmd_depth_for(1e-3, W)
         rng = np.random.default_rng(9)
         x = rng.uniform(0, W, (8, 3, 256)).astype(np.float32)
-        a = ShardedPositionCodec(mesh=mesh, width=W, depth=depth,
-                                 scale_mode="recip", fused_rows=True,
-                                 interpret=True)
-        b = ShardedPositionCodec(mesh=mesh, width=W, depth=depth,
-                                 scale_mode="recip", fused_rows=False)
+        a = ShardedPositionCodec(mesh=make_mesh(4), width=W, depth=depth,
+                                 scale_mode="recip")
+        b = ShardedPositionCodec(mesh=make_mesh(1), width=W, depth=depth,
+                                 scale_mode="recip")
         wa = a.encode(x)
         wb = b.encode(x)
         assert np.array_equal(np.asarray(wa[0]), np.asarray(wb[0]))
